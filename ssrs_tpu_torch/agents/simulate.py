@@ -1,0 +1,384 @@
+"""The agent simulation core: all tracks advance in lockstep.
+
+The PyTorch counterpart of ``ssrs_tpu/agents/simulate.py``, for the
+parts the uniform-mode run uses. The reference simulates each track
+with a sequential Python loop in a process pool (ssrs/movmodel.py:264-318);
+here the whole population advances one step per launch of the fused step
+kernel (``agents/fused_step.py``):
+
+- per-cell move weights (harmonic-mean updraft lift x potential drop x
+  inverse distance, ssrs/movmodel.py:294-305) depend only on the cell, so
+  they are precomputed once into a flat ``(nrow*ncol, 9)`` table that the
+  kernel gathers from;
+- the direction-memory restriction is a ring buffer of the last K move
+  indices, AND-ing rows of the (9, 9) restriction table
+  (ssrs/movmodel.py:307-309);
+- moves are sampled by inverse-CDF with one uniform per agent-step from a
+  ``torch.Generator``;
+- burn-in boundary pushes and boundary absorption are masks
+  (ssrs/movmodel.py:276,285-291,205-217);
+- presence counts accumulate on the device in an int32 (nrow, ncol) map.
+
+Presence accumulation is DELAYED BY ONE STEP, as in the JAX package: step
+t counts the *carried* position with the previous step's alive flag
+(``palive``), and :func:`flush_pending` adds the pending positions before
+every compaction and at the end. The counted multiset of (position,
+alive) pairs equals counting each new position at once.
+
+The step counter ``SimState.step`` is a host integer: the compacting loop
+knows how many steps it launched, so the burn-in and cap decisions need no
+device read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .fused_step import fused_step
+from .moves import (CENTER_ZERO, NEIGHBOR_DELTAS, NEIGHBOR_NORMS_INV,
+                    directional_probs, restriction_table)
+
+
+class TrackParams(NamedTuple):
+    """Static per-run parameters of the movement model."""
+    grid_shape: Tuple[int, int]        # (nrow, ncol)
+    move_dirn: float                   # degrees cw from north
+    nu: float                          # sharpening exponent
+    memory_k: int                      # direction-memory length (>= 0)
+    burnin: int                        # boundary-push steps
+    nsteps: int                        # step cap
+    # storage dtype of the per-cell move-weight table: 'auto'
+    # (resolve_weight_dtype), 'float32' or 'bfloat16' (~0.4% relative
+    # weight quantization)
+    weight_dtype: str = 'auto'
+
+
+# 'auto' weight-table rule: float32 while the float32 table is at most
+# this many bytes, bfloat16 above. The threshold is the JAX package's
+# (a TPU on-chip memory budget, ssrs_tpu/agents/simulate.py), kept as it
+# is so that both packages build the same table for the same config. It
+# has not been measured on the H100 yet (ROADMAP.md).
+AUTO_F32_MAX_BYTES = 6 * 2 ** 20
+
+_AUTO_DTYPE_NOTICED: set = set()
+
+_TORCH_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
+
+def resolve_weight_dtype(dtype: str, grid_shape) -> str:
+    """Resolve the 'auto' weight-storage tier; explicit 'float32' and
+    'bfloat16' pass through."""
+    if dtype != 'auto':
+        if dtype not in _TORCH_DTYPES:
+            raise ValueError(f"weight dtype {dtype!r}: expected 'auto', "
+                             "'float32' or 'bfloat16'")
+        return dtype
+    nrow, ncol = int(grid_shape[0]), int(grid_shape[1])
+    f32_bytes = nrow * ncol * 9 * 4
+    if f32_bytes <= AUTO_F32_MAX_BYTES:
+        return 'float32'
+    if (nrow, ncol) not in _AUTO_DTYPE_NOTICED:
+        _AUTO_DTYPE_NOTICED.add((nrow, ncol))
+        print(f'ssrs_tpu_torch: weight table at {nrow}x{ncol} is '
+              f'{f32_bytes / 2**20:.1f} MB in float32, above the '
+              f'{AUTO_F32_MAX_BYTES / 2**20:.0f} MB auto limit; storing '
+              "bfloat16. Set track_weight_precision='float32' to force "
+              'full precision.', flush=True)
+    return 'bfloat16'
+
+
+def harmonic_mean_weights(updraft: torch.Tensor,
+                          potential: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-cell move weights ``(nrow, ncol, 9)`` in float32.
+
+    base[r, c, m] = hm(w[r, c], w[r+dr, c+dc])
+                    * [(p[r, c] - p[r+dr, c+dc]) / ||d||  if potential given]
+
+    matching the 3x3 patch math at ssrs/movmodel.py:294-305 (updraft
+    clipped to >= 1e-6 first; the potential is padded with NaN, so border
+    cells get NaN weights, which prepared_weights replaces).
+    """
+    w = torch.clamp(updraft.to(torch.float32), min=1e-6)
+    nrow, ncol = w.shape
+    wpad = F.pad(w[None, None], (1, 1, 1, 1), value=1e-6)[0, 0]
+    if potential is not None:
+        p = potential.to(device=w.device, dtype=torch.float32)
+        ppad = F.pad(p[None, None], (1, 1, 1, 1), value=float('nan'))[0, 0]
+    layers = []
+    for m in range(9):
+        dr, dc = int(NEIGHBOR_DELTAS[m, 0]), int(NEIGHBOR_DELTAS[m, 1])
+        wn = wpad[dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
+        hm = 2.0 / (1.0 / w + 1.0 / wn)
+        if potential is not None:
+            pn = ppad[dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
+            hm = hm * (p - pn) * float(NEIGHBOR_NORMS_INV[m])
+        elif m == 4:
+            hm = torch.zeros_like(hm)
+        layers.append(hm)
+    return torch.stack(layers, dim=-1)
+
+
+def prepared_weights(updraft: torch.Tensor,
+                     potential: Optional[torch.Tensor],
+                     dirp: torch.Tensor, dtype: str) -> torch.Tensor:
+    """Move-weight table with the per-agent cascade prologue folded in.
+
+    The first three operations of ``generate_move_probabilities``
+    (ssrs/movmodel.py:227-232) — replace-with-directional-prior on NaN,
+    clip to >= 0, zero the center — depend only on the cell, so they are
+    applied once here. Returns the contiguous flat (nrow*ncol, 9) table in
+    the storage dtype that :func:`resolve_weight_dtype` picks
+    (``.to(torch.bfloat16)`` rounds to nearest even, as XLA does).
+    """
+    dtype = resolve_weight_dtype(dtype, updraft.shape)
+    base = harmonic_mean_weights(updraft, potential)
+    center0 = torch.from_numpy(CENTER_ZERO).to(base.device)
+    base = torch.clamp(base, min=0.) * center0
+    row_nan = torch.isnan(base).any(dim=-1, keepdim=True)
+    base = torch.where(row_nan, dirp.to(base.device) * center0, base)
+    return base.reshape(-1, 9).to(_TORCH_DTYPES[dtype]).contiguous()
+
+
+def weights_from_numpy(table: np.ndarray, device) -> torch.Tensor:
+    """A flat ``(nrow*ncol, 9)`` weight table held as numpy (float32, or
+    the ``bfloat16`` dtype JAX arrays convert to) as a tensor on
+    ``device``, bit for bit."""
+    table = np.array(table, order='C')  # a writable copy
+    if table.dtype.name == 'bfloat16':
+        return torch.from_numpy(table.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(table.astype(np.float32)).to(device)
+
+
+@dataclasses.dataclass
+class SimState:
+    pos_r: torch.Tensor      # (N,) int32 current row
+    pos_c: torch.Tensor      # (N,) int32 current col
+    mem: torch.Tensor        # (max(K, 1), N) int32 move ring buffer
+    #                          (init 4), oldest move first (row 0)
+    alive: torch.Tensor      # (N,) bool
+    palive: torch.Tensor     # (N,) bool: previous step's alive flag — the
+    #                          weight of the carried position in the
+    #                          pending (delayed) presence update
+    presence: torch.Tensor   # (nrow, ncol) int32; steps add into it in
+    #                          place
+    step: int                # steps taken, saturating at nsteps
+
+
+def init_state(params: TrackParams, start_rc, valid=None,
+               device=None) -> SimState:
+    """Initial state. The start cell counts toward presence (the
+    reference trajectory includes the start, ssrs/movmodel.py:281-283):
+    it is the first pending delayed update (``palive = valid``).
+    ``valid`` marks real agents; others start dead and count nothing."""
+    pos = torch.as_tensor(start_rc, dtype=torch.int32, device=device)
+    n = pos.shape[0]
+    alive = torch.ones(n, dtype=torch.bool, device=pos.device) \
+        if valid is None else torch.as_tensor(valid, dtype=torch.bool,
+                                              device=pos.device)
+    return SimState(
+        pos_r=pos[:, 0].contiguous(), pos_c=pos[:, 1].contiguous(),
+        mem=torch.full((max(params.memory_k, 1), n), 4, dtype=torch.int32,
+                       device=pos.device),
+        alive=alive, palive=alive.clone(),
+        presence=torch.zeros(params.grid_shape, dtype=torch.int32,
+                             device=pos.device),
+        step=0)
+
+
+def state_from_numpy(params: TrackParams, pos_r, pos_c, mem, alive, palive,
+                     step, presence, device) -> SimState:
+    """The port's state from the arrays of a JAX ``SimState``, as numpy.
+
+    JAX's presence map is tile-padded to (nrow_p, ncol_p); it is cut to
+    (nrow, ncol). JAX's int32 ``palive`` becomes a bool."""
+    nrow, ncol = params.grid_shape
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return SimState(
+        pos_r=dev(pos_r, torch.int32), pos_c=dev(pos_c, torch.int32),
+        mem=dev(mem, torch.int32), alive=dev(alive, torch.bool),
+        palive=dev(np.asarray(palive) != 0, torch.bool),
+        presence=dev(np.asarray(presence)[:nrow, :ncol], torch.int32),
+        step=int(step))
+
+
+def _push_from_boundary(r: torch.Tensor, c: torch.Tensor, nrow: int,
+                        ncol: int):
+    """Burn-in boundary push (ssrs/movmodel.py:205-217). Note the
+    reference's asymmetry: rows pushed when <= 1, cols when <= 0."""
+    r = torch.where(r <= 1, r + 2, torch.where(r >= nrow - 2, r - 2, r))
+    c = torch.where(c <= 0, c + 2, torch.where(c >= ncol - 2, c - 2, c))
+    return r, c
+
+
+def _alive_and_push(params: TrackParams, state: SimState):
+    """This step's alive flags and the positions the move starts from."""
+    nrow, ncol = params.grid_shape
+    r, c = state.pos_r, state.pos_c
+    if state.step >= params.nsteps:
+        return torch.zeros_like(state.alive), r, c
+    if state.step > params.burnin:
+        in_interior = (r > 0) & (r < nrow - 1) & (c > 0) & (c < ncol - 1)
+        return state.alive & in_interior, r, c
+    pr, pc = _push_from_boundary(r, c, nrow, ncol)
+    return state.alive, pr, pc
+
+
+def flush_pending(state: SimState) -> SimState:
+    """Add the pending delayed-presence contribution (the carried
+    positions weighted by ``palive``) into ``state.presence`` in place,
+    and clear ``palive`` so later steps cannot count it twice. Call at
+    the end of a run and before any compaction of the agent axis."""
+    ncol = state.presence.shape[1]
+    flat = state.pos_r.long() * ncol + state.pos_c.long()
+    state.presence.view(-1).index_add_(0, flat,
+                                       state.palive.to(torch.int32))
+    return dataclasses.replace(state,
+                               palive=torch.zeros_like(state.palive))
+
+
+def make_step_fn(params: TrackParams, base_flat: torch.Tensor,
+                 dirp: torch.Tensor, restr: torch.Tensor):
+    """The per-step transition ``step(state, u=None, generator=None)``.
+
+    ``base_flat`` is the ``(nrow*ncol, 9)`` table from
+    :func:`prepared_weights`; ``restr`` the (9, 9) restriction table.
+    Uniforms ``u`` may be injected; otherwise they are drawn from
+    ``generator``. Callers must :func:`flush_pending` at the end.
+    """
+    def step(state: SimState, u: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> SimState:
+        alive, pr, pc = _alive_and_push(params, state)
+        if u is None:
+            u = torch.rand(state.pos_r.shape[0], generator=generator,
+                           dtype=torch.float32, device=state.pos_r.device)
+        new_r, new_c, new_mem = fused_step(
+            base_flat, restr, dirp, pr, pc, state.pos_r, state.pos_c,
+            alive, state.palive, state.mem, u, state.presence,
+            nu=params.nu, memory_k=params.memory_k)
+        # the counter saturates at the cap
+        return SimState(pos_r=new_r, pos_c=new_c, mem=new_mem, alive=alive,
+                        palive=alive, presence=state.presence,
+                        step=min(state.step + 1, params.nsteps))
+
+    return step
+
+
+def _bucket_for(n_alive: int, min_bucket: int, quantum: int = 1) -> int:
+    """Smallest {1, 1.5} * 2^k >= n_alive (>= min_bucket) that is also a
+    multiple of ``quantum``. The 1.5x rungs bound the dead slots a bucket
+    carries before the next compaction at 1.5x instead of 2x."""
+    n = max(n_alive, min_bucket, 1)
+    p = 1 << max(n.bit_length() - 1, 0)      # largest pow2 <= n
+    if p >= n:
+        m = p
+    elif 3 * p // 2 >= n:
+        m = 3 * p // 2
+    else:
+        m = 2 * p
+    return ((m + quantum - 1) // quantum) * quantum
+
+
+def _norm_tail_bucket(tail_bucket, min_bucket: int) -> int:
+    """Normalize the ``tail_bucket`` knob (Config.track_tail_bucket can
+    arrive from a run JSON): 0 -> stop compacting at ``min_bucket``,
+    negative int -> -1 (never switch; compaction still stops at
+    ``min_bucket``), positive int -> that bucket floored at
+    ``min_bucket``. ``'auto'`` (the JAX package's self-tuned switch) is
+    not ported."""
+    if tail_bucket == 'auto':
+        raise NotImplementedError(
+            "tail_bucket='auto' is not ported: it tunes the JAX package's "
+            'remote-dispatch tail and has no counterpart on a local card')
+    if isinstance(tail_bucket, (int, np.integer)) \
+            and not isinstance(tail_bucket, bool):
+        tb = int(tail_bucket)
+        if tb == 0:
+            return min_bucket
+        return -1 if tb < 0 else max(min_bucket, tb)
+    raise ValueError(
+        "tail_bucket must be 0 (switch at min_bucket), a negative int "
+        '(never switch), or a positive int bucket; got '
+        f'{tail_bucket!r}')
+
+
+def _compact_body(state: SimState, m: int):
+    """Flush, stable-pack alive agents to the front, truncate to bucket
+    m. Returns (state, order)."""
+    state = flush_pending(state)
+    # argsort on CUDA wants an integer key; alive agents (key 0) first
+    order = torch.argsort((~state.alive).to(torch.int32), stable=True)[:m]
+    return dataclasses.replace(
+        state, pos_r=state.pos_r[order], pos_c=state.pos_c[order],
+        mem=state.mem[:, order], alive=state.alive[order],
+        palive=state.palive[order]), order
+
+
+def simulate_presence_compacting(params: TrackParams, start_rc,
+                                 generator: torch.Generator,
+                                 updraft=None, potential=None,
+                                 chunk: int = 512,
+                                 min_bucket: int = 1024,
+                                 valid=None,
+                                 tail_bucket=0,
+                                 base_flat: Optional[torch.Tensor] = None,
+                                 dirp: Optional[torch.Tensor] = None):
+    """Presence simulation with dead-agent compaction.
+
+    Runs on ``generator.device``. ``base_flat``: an already-prepared
+    ``(nrow*ncol, 9)`` weight table; when given, ``updraft`` and
+    ``potential`` are ignored. ``dirp`` optionally overrides the
+    directional prior derived from ``params.move_dirn``.
+
+    A Python loop over chunks of ``chunk`` steps reads the alive count
+    once per chunk; whenever the live population falls below the current
+    bucket, the survivors are packed into the next {1,1.5}*2^k bucket.
+    ``tail_bucket`` sets the bucket below which no compaction happens
+    (:func:`_norm_tail_bucket`). The run stops when every agent is dead
+    or after ``params.nsteps`` steps. Deterministic for a fixed generator
+    state on one device.
+
+    Returns (presence int32 (nrow, ncol) on the device, steps taken).
+    """
+    device = generator.device
+    if dirp is None:
+        dirp = torch.from_numpy(directional_probs(params.move_dirn))
+    dirp = dirp.to(device=device, dtype=torch.float32)
+    restr = torch.from_numpy(restriction_table()).to(device)
+    if base_flat is None:
+        if updraft is None:
+            raise NotImplementedError(
+                "the directed random walk ('drw', no weight table) is not "
+                'ported yet (ROADMAP.md)')
+        updraft = torch.as_tensor(updraft, dtype=torch.float32,
+                                  device=device)
+        if potential is not None:
+            potential = torch.as_tensor(potential, dtype=torch.float32,
+                                        device=device)
+        base_flat = prepared_weights(updraft, potential, dirp,
+                                     params.weight_dtype)
+    floor = max(min_bucket, _norm_tail_bucket(tail_bucket, min_bucket))
+    state = init_state(params, start_rc, valid=valid, device=device)
+    step = make_step_fn(params, base_flat, dirp, restr)
+    # optimistic initial count: a population that starts all dead ends
+    # the loop after one chunk of no-op steps
+    n_alive = state.pos_r.shape[0]
+    while state.step < params.nsteps and n_alive > 0:
+        for _ in range(min(chunk, params.nsteps - state.step)):
+            state = step(state, generator=generator)
+        n_alive = int(state.alive.sum())
+        cur = state.pos_r.shape[0]
+        if n_alive > 0 and cur > floor:
+            m = _bucket_for(n_alive, min_bucket)
+            if m < cur:
+                state, _ = _compact_body(state, m)
+    state = flush_pending(state)
+    return state.presence, state.step

@@ -1,0 +1,378 @@
+"""The ``Simulator`` facade of the port, in uniform mode.
+
+The PyTorch counterpart of ``ssrs_tpu/simulator.py`` for one slice: the
+uniform-mode ``fluidflow`` run with the host float64 direct potential
+solve. It keeps the JAX package's constructor flow (region -> terrain ->
+orographic updraft), its output-directory layout and its artifact names
+and formats (``*_orograph.npy``, ``*_potential.npy``, ``*_counts.npy``,
+``summary_presence.npy``, ``phase_timings.json``), so one package's
+cached fields feed the other.
+
+Every configuration outside the slice raises ``NotImplementedError``
+naming its item in ROADMAP.md. Turbines (USWTDB) and plotting are not
+ported; the terrain is the offline synthetic DEM.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import asdict
+from typing import List
+
+import numpy as np
+import torch
+
+from .config import Config
+from .core.grid import Grid
+from .core.rng import case_generator
+from .core.timing import PhaseTimer, elapsed_str
+from .agents.presence import smooth_presence
+from .agents.simulate import TrackParams, simulate_presence_compacting
+from .agents.starts import get_starting_indices
+from .data import (Terrain, get_raster_in_projected_crs, transform_bounds,
+                   transform_coordinates)
+from .fields import (compute_orographic_updraft,
+                     compute_slope_aspect_degrees,
+                     get_above_threshold_speed)
+from .potential.direct import solve_potential_direct
+from .utils import makedir_if_not_exists
+
+
+def _check_slice(cfg: Config) -> None:
+    """Raise NotImplementedError for a configuration outside the slice."""
+    todo = 'ROADMAP.md, "Modules still to port"'
+    if str(cfg.sim_mode).lower() != 'uniform':
+        raise NotImplementedError(
+            f'sim_mode={cfg.sim_mode!r}: only uniform mode is ported; '
+            f'snapshot and seasonal modes (WTK) wait ({todo}: WTK, '
+            'multi-case)')
+    if int(cfg.thermals_realization_count) > 0:
+        raise NotImplementedError(
+            'thermals_realization_count > 0: thermals are not ported yet '
+            f'({todo}: thermals)')
+    if cfg.movement_model != 'fluidflow':
+        raise NotImplementedError(
+            f'movement_model={cfg.movement_model!r}: only fluidflow is '
+            f"ported; the directed random walk 'drw' waits ({todo})")
+    if str(cfg.potential_solver).lower() != 'direct':
+        raise NotImplementedError(
+            f'potential_solver={cfg.potential_solver!r}: the port runs the '
+            "host float64 'direct' solver only; the refined device solver "
+            f'is the next item ({todo}: refined device solver)')
+    if int(cfg.track_count) <= int(cfg.track_pkl_budget):
+        raise NotImplementedError(
+            f'track_count={cfg.track_count} <= track_pkl_budget='
+            f'{cfg.track_pkl_budget}: the recorded-track .pkl path is not '
+            f'ported yet ({todo}: recorded-track path); lower '
+            'track_pkl_budget to run the presence-count path')
+    if int(cfg.mesh_devices) > 1:
+        raise NotImplementedError(
+            f'mesh_devices={cfg.mesh_devices}: the port runs on one device; '
+            f'multi-GPU waits ({todo}: multi-GPU)')
+    if str(cfg.track_step_impl) not in ('auto', 'fused') or \
+            str(cfg.track_presence_impl) != 'auto':
+        raise NotImplementedError(
+            f'track_step_impl={cfg.track_step_impl!r}, track_presence_impl='
+            f'{cfg.track_presence_impl!r}: the port has one engine (the '
+            "fused step kernel); only 'auto' (or 'fused') is accepted")
+
+
+class Simulator(Config):
+    """SSRS simulation orchestrator (reference: ssrs/simulator.py:34), on
+    one PyTorch device (default ``'cuda'``)."""
+
+    lonlat_crs = 'EPSG:4326'
+
+    def __init__(self, in_config: Config = None, device='cuda',
+                 **kwargs) -> None:
+        device = torch.device(device)
+        if device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError(
+                'Simulator(device=cuda): no CUDA device is available; pass '
+                "device='cpu' explicitly to run the plain PyTorch versions")
+        if in_config is None:
+            super().__init__(**kwargs)
+        else:
+            super().__init__(**asdict(in_config))
+        _check_slice(self)
+        self.device = device
+        print(f'\n---- SSRS (PyTorch, {device}) in {self.sim_mode} mode')
+        print(f'Run name: {self.run_name}')
+
+        self.timer = PhaseTimer(device=device)
+        self._rng = np.random.default_rng(
+            self.sim_seed if self.sim_seed >= 0 else None)
+        if self.sim_seed >= 0:
+            print('Specified random number seed:', self.sim_seed)
+
+        # directories (ssrs/simulator.py:54-61)
+        print(f'Output dir: {os.path.join(self.out_dir, self.run_name)}')
+        self.data_dir = os.path.join(self.out_dir, self.run_name, 'data/')
+        self.fig_dir = os.path.join(self.out_dir, self.run_name, 'figs/')
+        self.mode_data_dir = os.path.join(self.data_dir, self.sim_mode)
+        self.mode_fig_dir = os.path.join(self.fig_dir, self.sim_mode)
+        for dirname in (self.mode_data_dir, self.mode_fig_dir):
+            makedir_if_not_exists(dirname)
+
+        # config dump (ssrs/simulator.py:63-67)
+        fpath = os.path.join(self.out_dir, self.run_name,
+                             f'{self.run_name}.json')
+        with open(fpath, 'w', encoding='utf-8') as cfile:
+            json.dump({k: v for k, v in self.__dict__.items()
+                       if not k.startswith('_') and _jsonable(v)},
+                      cfile, ensure_ascii=False, indent=2, default=str)
+
+        # grid geometry (ssrs/simulator.py:69-85)
+        print(f'Terrain resolution = {self.resolution} m')
+        proj_west, proj_south = transform_coordinates(
+            self.lonlat_crs, self.projected_crs,
+            self.southwest_lonlat[0], self.southwest_lonlat[1])
+        self.grid = Grid.from_region(
+            tuple(self.region_width_km), self.resolution,
+            (float(np.asarray(proj_west).ravel()[0]),
+             float(np.asarray(proj_south).ravel()[0])))
+        self.gridsize = self.grid.shape
+        print(f'Terrain grid size = {self.gridsize}')
+        self.bounds = self.grid.bounds
+        self.extent = self.grid.extent
+        self.lonlat_bounds = transform_bounds(
+            self.bounds, self.projected_crs, self.lonlat_crs)
+
+        # terrain: the offline synthetic DEM (the JAX package's chain
+        # 3DEP -> SRTM -> synthetic ends here without a network)
+        self.region = Terrain(self.lonlat_bounds, self.data_dir)
+        self.terrain_layers = {'Elevation': 'SYNTHETIC'}
+        with self.timer.phase('terrain'):
+            self.region.download(list(self.terrain_layers.values()))
+
+        print(f'Uniform mode: Wind speed = {self.uniform_windspeed} m/s')
+        print(f'Uniform mode: Wind dirn = {self.uniform_winddirn} deg(cw)')
+        self.case_ids = [self._get_uniform_id()]
+        with self.timer.phase('updrafts'):
+            self.compute_orographic_updraft_uniform()
+        print('SSRS Simulator initiation done.')
+
+    # ---- terrain ---------------------------------------------------------
+
+    def get_terrain_elevation(self) -> np.ndarray:
+        """The DEM on the run grid (float64, lower-left origin)."""
+        return get_raster_in_projected_crs(
+            self.region.get_raster_fpath(self.terrain_layers['Elevation']),
+            self.bounds, self.gridsize, self.resolution,
+            self.projected_crs)
+
+    def _slope_aspect(self):
+        # float32, as the JAX package computes with 64-bit types off
+        elev = torch.from_numpy(
+            self.get_terrain_elevation().astype(np.float32)).to(self.device)
+        return compute_slope_aspect_degrees(elev, self.resolution)
+
+    def get_terrain_slope(self) -> np.ndarray:
+        """Horn-stencil slope from the DEM (ssrs/simulator.py:152-159)."""
+        return self._slope_aspect()[0].cpu().numpy()
+
+    def get_terrain_aspect(self) -> np.ndarray:
+        return self._slope_aspect()[1].cpu().numpy()
+
+    def get_terrain_grid(self):
+        """(xgrid, ygrid) (ssrs/simulator.py:177-185)."""
+        return self.grid.xy_grid()
+
+    # ---- updrafts --------------------------------------------------------
+
+    def compute_orographic_updraft_uniform(self) -> None:
+        """Uniform-mode orographic updraft (ssrs/simulator.py:189-198)."""
+        print('Computing orographic updrafts..')
+        slope, aspect = self._slope_aspect()
+        orograph = compute_orographic_updraft(
+            torch.full(self.gridsize, float(self.uniform_windspeed),
+                       dtype=torch.float32, device=self.device),
+            torch.full(self.gridsize, float(self.uniform_winddirn),
+                       dtype=torch.float32, device=self.device),
+            slope, aspect)
+        fname = self._get_orograph_fname(self.case_ids[0],
+                                         self.mode_data_dir)
+        np.save(f'{fname}.npy', orograph.cpu().numpy().astype(np.float32))
+
+    def load_updrafts(self, case_id: str,
+                      apply_threshold: bool = True) -> List[torch.Tensor]:
+        """Orographic updraft of a case on the device, optionally
+        thresholded (ssrs/simulator.py:230-243; no thermals)."""
+        fname = self._get_orograph_fname(case_id, self.mode_data_dir)
+        orograph = torch.from_numpy(np.load(f'{fname}.npy')).to(self.device)
+        if apply_threshold:
+            orograph = get_above_threshold_speed(orograph,
+                                                 self.updraft_threshold)
+        return [orograph]
+
+    def _get_orograph_fname(self, case_id: str, dirname: str = './'):
+        return os.path.join(dirname, f'{case_id}_orograph')
+
+    # ---- directional potential ------------------------------------------
+
+    def get_directional_potential(self, updraft: torch.Tensor, case_id,
+                                  real_id) -> np.ndarray:
+        """Cached directional-potential solve (ssrs/simulator.py:259-288):
+        the host float64 direct solve of the float32 conductivity."""
+        fname = self._get_potential_fname(case_id, real_id,
+                                          self.mode_data_dir)
+        id_str = self._get_id_string(case_id, real_id)
+        try:
+            potential = np.load(f'{fname}.npy')
+            if potential.shape != tuple(self.gridsize):
+                raise FileNotFoundError
+            if (self.sim_seed < 0) and (real_id != 0):
+                raise FileNotFoundError
+            print(f'{id_str}: Found saved potential')
+        except FileNotFoundError:
+            start_time = time.time()
+            potential = solve_potential_direct(
+                updraft.cpu().numpy(), self.track_direction)
+            print(f'{id_str}: Computing potential..'
+                  f'took {elapsed_str(start_time)}', flush=True)
+            np.save(f'{fname}.npy', potential.astype(np.float32))
+        if np.isnan(potential).any():
+            print('NANs found in potential!')
+        return potential
+
+    def _get_id_string(self, case_id: str, real_id=None):
+        """Artifact id (ssrs/simulator.py:290-298)."""
+        out = (f'{case_id}_d{int(self.track_direction % 360)}'
+               f'_t{int(self.updraft_threshold * 100)}'
+               f'_{self.movement_model}')
+        if real_id is not None:
+            out += f'_r{int(real_id)}'
+        return out
+
+    def _get_potential_fname(self, case_id, real_id, dirname):
+        return os.path.join(dirname,
+                            f'{self._get_id_string(case_id, real_id)}'
+                            '_potential')
+
+    # ---- track simulation -----------------------------------------------
+
+    def _track_params(self) -> TrackParams:
+        cap = self.track_max_steps if self.track_max_steps > 0 else \
+            self.grid.reference_max_moves()
+        return TrackParams(
+            grid_shape=self.grid.shape,
+            move_dirn=float(self.track_direction),
+            nu=float(self.track_stochastic_nu),
+            memory_k=int(self.track_dirn_restrict),
+            burnin=self.grid.burnin_length(),
+            nsteps=cap,
+            weight_dtype=str(self.track_weight_precision))
+
+    def simulate_tracks(self) -> None:
+        """Simulate all tracks of the uniform case
+        (ssrs/simulator.py:332-386) and save the ``_counts.npy``
+        presence counts."""
+        with self.timer.phase('simulate_tracks',
+                              tracks=int(self.track_count),
+                              cases=len(self.case_ids)):
+            self._simulate_tracks_impl()
+        self._dump_phase_timings()
+
+    def _simulate_tracks_impl(self) -> None:
+        print(f'Movement model = {self.movement_model}')
+        print(f'Updraft threshold = {self.updraft_threshold} m/s')
+        print(f'Movement direction = {self.track_direction} deg (cw)')
+        starting_rows, starting_cols = get_starting_indices(
+            int(self.track_count), list(self.track_start_region),
+            self.track_start_type, tuple(self.region_width_km),
+            float(self.resolution), rng=self._rng)
+        starts = np.stack([starting_rows, starting_cols],
+                          axis=1).astype(np.int32)
+        params = self._track_params()
+        tail = int(self.track_tail_bucket) \
+            if self.track_tail_bucket != 'auto' else 'auto'
+        for case_id in self.case_ids:
+            real_id = 0
+            with self.timer.phase('potential'):
+                updraft = self.load_updrafts(case_id)[real_id]
+                potential = self.get_directional_potential(
+                    updraft, case_id, real_id)
+            id_str = self._get_id_string(case_id, real_id)
+            print(f'{id_str}: Simulating {self.track_count} tracks..',
+                  end='', flush=True)
+            start_time = time.time()
+            gen = case_generator(self.sim_seed, case_id, real_id, 'tracks',
+                                 self.device)
+            with self.timer.phase('tracks'):
+                presence, steps = simulate_presence_compacting(
+                    params, starts, gen, updraft=updraft,
+                    potential=torch.from_numpy(potential).to(self.device),
+                    tail_bucket=tail)
+                presence = presence.cpu().numpy()
+            print(f'took {elapsed_str(start_time)}', flush=True)
+            # useful steps = presence mass minus the start deposits
+            self.timer.records[-1].update(
+                steps=int(steps),
+                useful_steps=int(presence.sum(dtype=np.int64))
+                - int(self.track_count))
+            fname = self._get_counts_fname(case_id, real_id,
+                                           self.mode_data_dir)
+            np.save(f'{fname}.npy', presence.astype(np.int32))
+
+    def _dump_phase_timings(self) -> None:
+        """Structured phase log (``phase_timings.json``)."""
+        fpath = os.path.join(self.out_dir, self.run_name,
+                             'phase_timings.json')
+        with open(fpath, 'w', encoding='utf-8') as fobj:
+            json.dump(self.timer.records, fobj, indent=2, default=str)
+
+    def _get_counts_fname(self, case_id, real_id, dirname):
+        return os.path.join(dirname,
+                            f'{self._get_id_string(case_id, real_id)}'
+                            '_counts')
+
+    def get_presence_counts(self, case_id: str, real_id: int) -> np.ndarray:
+        """Presence counts of one realization (the ``_counts.npy``
+        artifact)."""
+        fname = self._get_counts_fname(case_id, real_id,
+                                       self.mode_data_dir)
+        return np.load(f'{fname}.npy')
+
+    # ---- presence maps ---------------------------------------------------
+
+    def _presence_kernel_radius(self, radius: float) -> int:
+        """Smoothing kernel radius in cells, clamped to [2, grid/2]."""
+        return int(round(min(max(radius / self.resolution, 2),
+                             min(self.gridsize) / 2)))
+
+    def compute_presence_map(self, radius: float = 1000.) -> np.ndarray:
+        """Summary presence probability over all cases (the computation
+        inside ``plot_presence_map``, ssrs/simulator.py:508-546), saved
+        as ``summary_presence.npy``."""
+        krad = self._presence_kernel_radius(radius)
+        summary_prob = np.zeros(self.gridsize, np.float64)
+        with self.timer.phase('presence_map'):
+            for case_id in self.case_ids:
+                counts = torch.from_numpy(
+                    self.get_presence_counts(case_id, 0).astype(np.int32))
+                prob = smooth_presence(counts.to(self.device), krad)
+                prob = prob.cpu().numpy()
+                # one realization per case, so the max-normalized
+                # realization is the case's probability
+                summary_prob += prob / np.amax(prob)
+            summary_prob = summary_prob / np.amax(summary_prob)
+            fname = os.path.join(self.mode_data_dir, 'summary_presence')
+            np.save(f'{fname}.npy', summary_prob.astype(np.float32))
+        self._dump_phase_timings()
+        return summary_prob
+
+    # ---- misc ------------------------------------------------------------
+
+    def _get_uniform_id(self):
+        return (f's{int(self.uniform_windspeed)}'
+                f'd{int(self.uniform_winddirn)}')
+
+
+def _jsonable(v) -> bool:
+    try:
+        json.dumps(v)
+        return True
+    except TypeError:
+        return False
