@@ -5,15 +5,19 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in the checkout, holds
-it against its plain PyTorch version on the card at the main path's
-shapes, drives the main path once (the README's uniform-mode run:
-500x600 cells at 100 m, 100,000 tracks, with the direct potential
-solve), checks the results, and checks a small run on the card against
-the same run through the plain versions on the CPU. Every phase prints
-one line; any failure exits non-zero. The last two lines are a JSON
-object with the kernel's numbers and the JSON status line
-``{"ok": true, "device": {...}}``.
+It builds the port's CUDA kernels from the sources in the checkout (the
+fused agent step, and the presence histograms: weighted for the flush,
+counting for the recount of recorded tracks), holds each against its
+plain PyTorch version on the card at the shapes its path gives it, and
+drives two runs of the README's region (500x600 cells at 100 m, direct
+potential solve): the uniform-mode run of 100,000 tracks, and the
+recorded-track run of 10,000 tracks (the default track_pkl_budget),
+which writes ``_tracks.pkl`` and must agree exactly with its own
+recount. It checks small runs on the card, with and without recorded
+tracks, against the same runs through the plain versions on the CPU.
+Every phase prints one line; any failure exits non-zero. The last two
+lines are a JSON object with the kernels' numbers and the JSON status
+line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -40,6 +45,13 @@ MAIN_CONFIG = dict(
     region_width_km=(60., 50.), resolution=100., sim_mode='uniform',
     uniform_winddirn=270., uniform_windspeed=10., track_count=100_000,
     potential_solver='direct', track_max_steps=10_000, sim_seed=7)
+# the recorded-track run: the largest run that records with the default
+# track_pkl_budget, in the main run's out_dir (its cached potential)
+RECORDED_TRACKS = 10_000
+# kernel B at the flush of the main path's first compaction; kernel C at
+# the recorded run's mass (10,000 tracks of ~630 moves)
+HIST_B_POINTS = 100_000
+HIST_C_POINTS = 6_400_000
 # a small run (the tests' WY config) compared between card and CPU
 SMALL_CONFIG = dict(
     run_name='wy_small', sim_mode='uniform', sim_seed=11,
@@ -78,7 +90,9 @@ def phase_device(torch):
 
 
 def phase_build():
-    from ssrs_tpu_torch import _build
+    """Build the CUDA kernels (nvcc) and the host track builder (g++), so
+    that the runs below time no build."""
+    from ssrs_tpu_torch import _build, native
     t0 = time.perf_counter()
     _build.load_library()
     secs = time.perf_counter() - t0
@@ -86,6 +100,10 @@ def phase_build():
             if 'registers' in ln]
     say(f'build: {secs:.2f} s (nvcc {_build.build_info["seconds"]:.2f} s) '
         f'{_build.build_info["path"]}; ptxas: {" | ".join(regs)}')
+    t0 = time.perf_counter()
+    if not native.native_available():
+        fail('the C++ track builder does not build (g++)')
+    say(f'build: C++ track builder {time.perf_counter() - t0:.2f} s')
 
 
 def _step_inputs(torch, rng, dtype, dev):
@@ -205,68 +223,274 @@ def phase_kernel(torch):
     return max_err, timing
 
 
-def phase_main(torch, device_name):
+def _scatter_indices(rng, n):
+    """(rows, cols) on the 500x600 grid, about 3% of them out of range:
+    row -1, row NROW, col NCOL + 77."""
+    r = rng.integers(0, NROW, n)
+    c = rng.integers(0, NCOL, n)
+    odd = rng.random(n)
+    r[odd < 0.01] = -1
+    r[(odd >= 0.01) & (odd < 0.02)] = NROW
+    c[(odd >= 0.02) & (odd < 0.03)] = NCOL + 77
+    return r, c
+
+
+def phase_hist(torch):
+    """Kernels B and C against their plain versions on the card at their
+    paths' shapes (exact), and their times."""
+    from ssrs_tpu_torch.agents import presence_hist as ph
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(2027)
+    r, c = _scatter_indices(rng, HIST_B_POINTS)
+    rb = torch.from_numpy(r.astype(np.int32)).to(dev)
+    cb = torch.from_numpy(c.astype(np.int32)).to(dev)
+    wb = torch.from_numpy(
+        (rng.random(HIST_B_POINTS) < 0.6).astype(np.float32)).to(dev)
+    r, c = _scatter_indices(rng, HIST_C_POINTS)
+    r[rng.random(HIST_C_POINTS) < 0.3] = -1
+    rc = torch.from_numpy(r.astype(np.int16)).to(dev)
+    cc = torch.from_numpy(c.astype(np.int16)).to(dev)
+    cases = {
+        'presence_histogram': (
+            lambda: ph.presence_histogram(rb, cb, wb, NROW, NCOL),
+            lambda: ph.presence_histogram_plain(rb, cb, wb, NROW, NCOL),
+            f'N={HIST_B_POINTS} 0/1 weights'),
+        'presence_histogram_batch': (
+            lambda: ph.presence_histogram_batch(rc, cc, NROW, NCOL),
+            lambda: ph.presence_histogram_batch_plain(rc, cc, NROW, NCOL),
+            f'M={HIST_C_POINTS} int16, 30% dead'),
+    }
+    out = {}
+    for name, (kernel, plain, what) in cases.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        if err or int(want.sum()) <= 0:
+            fail(f'{name}: differs from plain (max abs err {err})')
+        tm = {'max_abs_err': err,
+              'ms': _device_ms(torch, kernel),
+              'plain_ms': _device_ms(torch, plain),
+              'host_ms': _host_ms(torch, kernel),
+              'plain_host_ms': _host_ms(torch, plain)}
+        out[name] = tm
+        say(f'{name} ({what}, {NROW}x{NCOL}): exact match with plain; '
+            f'kernel {tm["ms"] * 1e3:.1f} us device / '
+            f'{tm["host_ms"] * 1e3:.1f} us wall; plain '
+            f'{tm["plain_ms"] * 1e3:.1f} us device / '
+            f'{tm["plain_host_ms"] * 1e3:.1f} us wall')
+    return out
+
+
+def _reset_counts():
+    from ssrs_tpu_torch.agents import fused_step, presence_hist, simulate
+    fused_step.reset_launch_count()
+    presence_hist.reset_launch_count()
+    simulate.reset_flush_count()
+
+
+def _read_counts():
+    from ssrs_tpu_torch.agents import fused_step, presence_hist, simulate
+    return {'fused_step': fused_step.launch_count(),
+            'presence_histogram':
+                presence_hist.launch_count('presence_histogram'),
+            'presence_histogram_batch':
+                presence_hist.launch_count('presence_histogram_batch'),
+            'flushes': simulate.flush_count()}
+
+
+def phase_main(torch, device_name, out):
+    """The uniform-mode run of 100,000 tracks, in ``out``."""
     from ssrs_tpu_torch import Config, Simulator
-    from ssrs_tpu_torch.agents import launch_count, reset_launch_count
-    with tempfile.TemporaryDirectory(dir=REPO, prefix='.smoke_') as out:
-        cfg = Config(out_dir=out, **MAIN_CONFIG)
-        t0 = time.perf_counter()
-        sim = Simulator(cfg)
-        ctor = time.perf_counter() - t0
-        reset_launch_count()
-        sim.simulate_tracks()
-        launches = launch_count()
-        sim.compute_presence_map()
-        records = {r['phase']: r for r in sim.timer.records}
-        steps = records['tracks']['steps']
-        if launches != steps or steps <= 0:
-            fail(f'main path: {launches} kernel launches for {steps} steps')
-        counts = sim.get_presence_counts(sim.case_ids[0], 0)
-        if counts.shape != (NROW, NCOL) or not np.isfinite(counts).all() \
-                or counts.min() < 0:
-            fail('main path: counts are not a finite non-negative '
-                 f'{NROW}x{NCOL} map')
-        floor = cfg.track_count * (sim.grid.burnin_length() + 1)
-        total = int(counts.sum(dtype=np.int64))
-        if total < floor:
-            fail(f'main path: presence mass {total} < {floor}')
-        summary = np.load(os.path.join(sim.mode_data_dir,
-                                       'summary_presence.npy'))
-        if summary.shape != (NROW, NCOL) or summary.max() != 1.0:
-            fail('main path: summary_presence.npy is not max-normalized')
-        useful = records['tracks']['useful_steps']
-        tracks_s = records['tracks']['seconds']
-        say('main path phases (s): ' + ', '.join(
-            f'{k} {records[k]["seconds"]:.3f}' for k in
-            ('terrain', 'updrafts', 'potential', 'tracks',
-             'simulate_tracks', 'presence_map')) + f'; ctor {ctor:.3f}')
-        say(f'main path: {steps} steps, {launches} kernel launches, '
-            f'{useful} agent-steps in {tracks_s:.3f} s = '
-            f'{useful / tracks_s:.4g} agent-steps/s on {device_name}')
-    return launches
+    cfg = Config(out_dir=out, **MAIN_CONFIG)
+    t0 = time.perf_counter()
+    sim = Simulator(cfg)
+    ctor = time.perf_counter() - t0
+    _reset_counts()
+    sim.simulate_tracks()
+    launched = _read_counts()
+    sim.compute_presence_map()
+    records = {r['phase']: r for r in sim.timer.records}
+    steps = records['tracks']['steps']
+    if launched['fused_step'] != steps or steps <= 0:
+        fail(f'main path: {launched["fused_step"]} kernel launches for '
+             f'{steps} steps')
+    if launched['presence_histogram'] != launched['flushes'] or \
+            launched['flushes'] < 1:
+        fail(f'main path: {launched["presence_histogram"]} histogram '
+             f'launches for {launched["flushes"]} flushes')
+    counts = sim.get_presence_counts(sim.case_ids[0], 0)
+    if counts.shape != (NROW, NCOL) or not np.isfinite(counts).all() \
+            or counts.min() < 0:
+        fail('main path: counts are not a finite non-negative '
+             f'{NROW}x{NCOL} map')
+    floor = cfg.track_count * (sim.grid.burnin_length() + 1)
+    total = int(counts.sum(dtype=np.int64))
+    if total < floor:
+        fail(f'main path: presence mass {total} < {floor}')
+    summary = np.load(os.path.join(sim.mode_data_dir,
+                                   'summary_presence.npy'))
+    if summary.shape != (NROW, NCOL) or summary.max() != 1.0:
+        fail('main path: summary_presence.npy is not max-normalized')
+    useful = records['tracks']['useful_steps']
+    tracks_s = records['tracks']['seconds']
+    say('main path phases (s): ' + ', '.join(
+        f'{k} {records[k]["seconds"]:.3f}' for k in
+        ('terrain', 'updrafts', 'potential', 'tracks',
+         'simulate_tracks', 'presence_map')) + f'; ctor {ctor:.3f}')
+    say(f'main path: {steps} steps, {launched["fused_step"]} kernel '
+        f'launches, {launched["flushes"]} flushes through '
+        f'{launched["presence_histogram"]} histogram launches, {useful} '
+        f'agent-steps in {tracks_s:.3f} s = {useful / tracks_s:.4g} '
+        f'agent-steps/s on {device_name}')
+    return launched
 
 
-def phase_small(torch):
-    """The small WY run on the card and through the plain versions on
-    the CPU, on one potential: the CPU run reads the card run's cached
-    potential from the shared out_dir (where the conductivity is high the
-    potential is flat to float32 ulps, so two potentials that differ by
-    ulps alone move the maps apart by more than sampling noise)."""
+def _check_tracks(tracks, starts, nrow, ncol, burnin, cap):
+    """The recorded tracks' invariants, exact: int16 C-contiguous
+    ``(len, 2)`` arrays that start at their start cells and stay in the
+    grid, ``burnin + 1 <= len <= cap + 1``, a track shorter than the cap
+    ends on the boundary, and after the burn-in consecutive cells are
+    neighbours. Returns the lengths."""
+    if len(tracks) != len(starts):
+        fail(f'recorded run: {len(tracks)} tracks for {len(starts)} starts')
+    for t in tracks:
+        if t.dtype != np.int16 or t.ndim != 2 or t.shape[1] != 2 \
+                or not t.flags.c_contiguous:
+            fail(f'recorded run: a track is {t.dtype} {t.shape}, not a '
+                 'C-contiguous int16 (len, 2) array')
+    lengths = np.array([len(t) for t in tracks])
+    if lengths.min() < burnin + 1 or lengths.max() > cap + 1:
+        fail(f'recorded run: lengths {lengths.min()}..{lengths.max()} '
+             f'outside [{burnin + 1}, {cap + 1}]')
+    flat = np.concatenate(tracks).astype(np.int64)
+    first = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    if not np.array_equal(flat[first], starts):
+        fail('recorded run: a track does not start at its start cell')
+    if flat[:, 0].min() < 0 or flat[:, 0].max() >= nrow or \
+            flat[:, 1].min() < 0 or flat[:, 1].max() >= ncol:
+        fail('recorded run: a track leaves the grid')
+    last = flat[first + lengths - 1]
+    on_edge = (last[:, 0] == 0) | (last[:, 0] == nrow - 1) | \
+        (last[:, 1] == 0) | (last[:, 1] == ncol - 1)
+    if not on_edge[lengths < cap + 1].all():
+        fail('recorded run: a track ended before the cap off the boundary')
+    # index of each point within its track; the move into point k comes
+    # after the burn-in when k >= burnin + 2
+    k = np.arange(len(flat)) - np.repeat(first, lengths)
+    moves = np.abs(np.diff(flat, axis=0)).max(axis=1)
+    if moves[k[1:] >= burnin + 2].max(initial=0) > 1:
+        fail('recorded run: a move after the burn-in is not to a neighbour')
+    return lengths
+
+
+def phase_recorded(torch, device_name, out):
+    """The recorded-track run: the README region with 10,000 tracks (the
+    default track_pkl_budget), in the main run's ``out`` so that its
+    potential comes from the cache."""
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.agents import get_starting_indices
+    from ssrs_tpu_torch.agents.presence_hist import presence_histogram_batch
+    cfg = Config(out_dir=out, **{**MAIN_CONFIG,
+                                 'track_count': RECORDED_TRACKS})
+    if cfg.track_count > cfg.track_pkl_budget:
+        fail('recorded run: the config does not record')
+    sim = Simulator(cfg)
+    _reset_counts()
+    sim.simulate_tracks()
+    records = {r['phase']: r for r in sim.timer.records}
+    rec = records['tracks']
+    if 'potential' not in records or records['potential']['seconds'] > 1.:
+        fail('recorded run: the potential was not read from the cache')
+    if not rec.get('recorded'):
+        fail('recorded run: the tracks phase did not record')
+    if rec['builder'] != 'native':
+        fail(f'recorded run: the {rec["builder"]} track builder ran, not '
+             'the C++ one')
+    data = sim.mode_data_dir
+    ident = sim._get_id_string(sim.case_ids[0], 0)
+    with open(os.path.join(data, f'{ident}_tracks.pkl'), 'rb') as fobj:
+        tracks = pickle.load(fobj)
+    rows, cols = get_starting_indices(
+        cfg.track_count, list(cfg.track_start_region), cfg.track_start_type,
+        tuple(cfg.region_width_km), float(cfg.resolution),
+        rng=np.random.default_rng(cfg.sim_seed))
+    lengths = _check_tracks(tracks, np.stack([rows, cols], axis=1),
+                            NROW, NCOL, sim.grid.burnin_length(),
+                            cfg.track_max_steps)
+    counts_path = os.path.join(data, f'{ident}_counts.npy')
+    counts = np.load(counts_path)
+    if int(counts.sum(dtype=np.int64)) != int(lengths.sum()):
+        fail(f'recorded run: counts mass {counts.sum()} != sum of lengths '
+             f'{lengths.sum()}')
+    # the int32 recount of the .pkl through kernel C, cell for cell
+    pts = torch.from_numpy(np.ascontiguousarray(
+        np.concatenate(tracks).T)).to(sim.device)
+    recount = presence_histogram_batch(pts[0], pts[1], NROW, NCOL)
+    if not np.array_equal(recount.cpu().numpy(), counts):
+        fail('recorded run: _counts.npy differs from the recount of the pkl')
+    # the pkl fallback of get_presence_counts: int16, as the JAX package's
+    os.replace(counts_path, counts_path + '.moved')
+    fallback = sim.get_presence_counts(sim.case_ids[0], 0)
+    if fallback.dtype != np.int16 or \
+            not np.array_equal(fallback, counts.astype(np.int16)):
+        fail('recorded run: get_presence_counts without _counts.npy is not '
+             'the int16 recount')
+    launched = _read_counts()
+    steps = rec['steps']
+    if launched['fused_step'] != steps or steps <= 0:
+        fail(f'recorded run: {launched["fused_step"]} step launches for '
+             f'{steps} steps')
+    if launched['presence_histogram'] != launched['flushes'] or \
+            launched['flushes'] < 1:
+        fail(f'recorded run: {launched["presence_histogram"]} histogram '
+             f'launches for {launched["flushes"]} flushes')
+    if launched['presence_histogram_batch'] < 1:
+        fail('recorded run: the count kernel never launched')
+    useful = rec['useful_steps']
+    say(f'recorded run: {cfg.track_count} tracks, {steps} steps, '
+        f'{launched["flushes"]} flushes, {useful} agent-steps in '
+        f'{rec["seconds"]:.3f} s = {useful / rec["seconds"]:.4g} '
+        f'agent-steps/s on {device_name}; track rebuild '
+        f'{rec["build_seconds"]:.3f} s (C++), .pkl write '
+        f'{records["write_tracks"]["seconds"]:.3f} s; exact: tracks, '
+        'counts = recount, int16 fallback')
+    return launched
+
+
+def _small_maps(torch, config):
+    """The smoothed, normalized count maps of ``config`` on the card and
+    through the plain versions on the CPU, on one potential: the CPU run
+    reads the card run's cached potential from the shared out_dir (where
+    the conductivity is high the potential is flat to float32 ulps, so
+    two potentials that differ by ulps alone move the maps apart by more
+    than sampling noise)."""
     from ssrs_tpu_torch import Config, Simulator
     from ssrs_tpu_torch.agents import smooth_presence
     maps = []
     with tempfile.TemporaryDirectory(dir=REPO, prefix='.smoke_') as out:
         for device in ('cuda', 'cpu'):
-            sim = Simulator(Config(out_dir=out, **SMALL_CONFIG),
-                            device=device)
+            sim = Simulator(Config(out_dir=out, **config), device=device)
             sim.simulate_tracks()
+            rec = {r['phase']: r for r in sim.timer.records}['tracks']
+            if rec['recorded'] != (sim.track_count <= sim.track_pkl_budget):
+                fail(f'small run on {device}: recorded={rec["recorded"]}')
             counts = sim.get_presence_counts(sim.case_ids[0], 0)
             smooth = smooth_presence(torch.from_numpy(counts), 3).numpy()
             maps.append(smooth.astype(np.float64) / smooth.sum())
-    l1 = float(np.abs(maps[0] - maps[1]).sum())
-    if not l1 < L1_BOUND:
-        fail(f'small run: card vs CPU L1 {l1:.4f} >= {L1_BOUND}')
-    say(f'small run: card vs CPU plain versions L1 {l1:.4f} < {L1_BOUND}')
+    return float(np.abs(maps[0] - maps[1]).sum())
+
+
+def phase_small(torch):
+    """The small WY run, card against CPU: counts alone, then with
+    recorded tracks (the default budget)."""
+    recorded = {k: v for k, v in SMALL_CONFIG.items()
+                if k != 'track_pkl_budget'}
+    for label, config in (('small run', SMALL_CONFIG),
+                          ('small recorded run', recorded)):
+        l1 = _small_maps(torch, config)
+        if not l1 < L1_BOUND:
+            fail(f'{label}: card vs CPU L1 {l1:.4f} >= {L1_BOUND}')
+        say(f'{label}: card vs CPU plain versions L1 {l1:.4f} < {L1_BOUND}')
 
 
 def main() -> int:
@@ -286,19 +510,36 @@ def main() -> int:
     name = phase_device(torch)
     phase_build()
     max_err, timing = phase_kernel(torch)
-    launches = phase_main(torch, name)
+    hist = phase_hist(torch)
+    with tempfile.TemporaryDirectory(dir=REPO, prefix='.smoke_') as out:
+        main_run = phase_main(torch, name, out)
+        recorded = phase_recorded(torch, name, out)
     phase_small(torch)
     if any(m for m in sys.modules if m.split('.')[0] in ('jax', 'ssrs_tpu')):
         fail('JAX or ssrs_tpu was imported')
     bf16, f32 = timing['bfloat16'], timing['float32']
-    print(json.dumps({'kernels': [{
+    kernels = [{
         'name': 'fused_step', 'route': 'cuda',
         'source': 'ssrs_tpu_torch/csrc/fused_step.cu',
         'replaces': 'ssrs_tpu/agents/fused_step.py:52',
-        'launches': launches, 'max_abs_err': max_err,
-        'ms': bf16['ms'], 'plain_ms': bf16['plain_ms'],
-        'ms_float32': f32['ms'], 'plain_ms_float32': f32['plain_ms']}]}),
-        flush=True)
+        'max_abs_err': max_err, 'ms': bf16['ms'],
+        'plain_ms': bf16['plain_ms'], 'ms_float32': f32['ms'],
+        'plain_ms_float32': f32['plain_ms']}]
+    for name_k, line in (('presence_histogram', 31),
+                         ('presence_histogram_batch', 59)):
+        tm = hist[name_k]
+        kernels.append({
+            'name': name_k, 'route': 'cuda',
+            'source': 'ssrs_tpu_torch/csrc/presence_hist.cu',
+            'replaces': f'ssrs_tpu/agents/pallas_hist.py:{line}',
+            'max_abs_err': tm['max_abs_err'], 'ms': tm['ms'],
+            'plain_ms': tm['plain_ms']})
+    for k in kernels:
+        # launches: the recorded-track run, which runs all three kernels;
+        # launches_uniform_run: the 100,000-track run (A and B)
+        k['launches'] = recorded[k['name']]
+        k['launches_uniform_run'] = main_run[k['name']]
+    print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

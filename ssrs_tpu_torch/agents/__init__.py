@@ -1,21 +1,35 @@
 """Agent engine: move tables, start sampler, the fused step kernel, the
-lockstep loop with compaction, presence smoothing."""
+presence histogram kernels, the lockstep drivers (with compaction, and
+with recorded trajectories), presence counting and smoothing."""
 
-# the module ``agents.fused_step`` holds the kernel wrapper of the same
-# name; it is not re-exported here, so the submodule stays reachable
+# the modules ``agents.fused_step`` and ``agents.presence_hist`` hold
+# kernel wrappers of the same names; they are not re-exported here, so
+# the submodules stay reachable
 from .fused_step import fused_step_plain, launch_count, reset_launch_count
 from .moves import directional_probs, restriction_table
-from .presence import circular_kernel, smooth_presence
-from .simulate import (SimState, TrackParams, flush_pending, init_state,
-                       make_step_fn, prepared_weights,
-                       simulate_presence_compacting, state_from_numpy,
+from .presence import (circular_kernel, compute_presence_counts,
+                       compute_smooth_presence_counts, smooth_presence,
+                       smooth_presence_from_counts)
+from .presence_hist import (presence_histogram_batch_plain,
+                            presence_histogram_plain)
+from .simulate import (RecordedRun, SimState, TrackParams, flush_count,
+                       flush_pending, init_state, make_step_fn,
+                       prepared_weights, record_tracks_run,
+                       reset_flush_count, simulate_presence,
+                       simulate_presence_compacting,
+                       simulate_tracks_recorded, state_from_numpy,
                        weights_from_numpy)
 from .starts import get_starting_indices
 
 __all__ = ['fused_step_plain', 'launch_count',
            'reset_launch_count', 'directional_probs', 'restriction_table',
-           'circular_kernel', 'smooth_presence', 'SimState', 'TrackParams',
-           'flush_pending', 'init_state', 'make_step_fn',
-           'prepared_weights', 'simulate_presence_compacting',
+           'circular_kernel', 'compute_presence_counts',
+           'compute_smooth_presence_counts', 'smooth_presence',
+           'smooth_presence_from_counts', 'presence_histogram_batch_plain',
+           'presence_histogram_plain', 'RecordedRun', 'SimState',
+           'TrackParams', 'flush_count', 'flush_pending', 'init_state',
+           'make_step_fn', 'prepared_weights', 'record_tracks_run',
+           'reset_flush_count', 'simulate_presence',
+           'simulate_presence_compacting', 'simulate_tracks_recorded',
            'state_from_numpy', 'weights_from_numpy',
            'get_starting_indices']

@@ -1,16 +1,22 @@
-"""Presence-density maps: circular-kernel smoothing.
+"""Presence-density maps: counting and circular-kernel smoothing.
 
-The PyTorch counterpart of ``ssrs_tpu/agents/presence.py``
-(``compute_smooth_presence_counts``: flat circular kernel, normalized,
-'same' 2-D convolution, ssrs/movmodel.py:422-439). Counting happens in
-the agent step (``agents/fused_step.py``).
+The PyTorch counterpart of ``ssrs_tpu/agents/presence.py``: the count of
+a list of trajectories (``compute_presence_counts``, the reference's
+per-(track, step) loop, ssrs/movmodel.py:410-419) through the presence
+count kernel, and the smoothing (flat circular kernel, normalized, 'same'
+2-D convolution, ssrs/movmodel.py:422-439). The simulation itself counts
+in the agent step (``agents/fused_step.py``) and its flush.
 """
 
 from __future__ import annotations
 
+from typing import List, Tuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .presence_hist import presence_histogram_batch
 
 
 def circular_kernel(krad: int) -> np.ndarray:
@@ -37,3 +43,42 @@ def smooth_presence(count_mat: torch.Tensor, krad: int) -> torch.Tensor:
     finally:
         torch.backends.cudnn.allow_tf32 = saved
     return out[0, 0]
+
+
+def compute_presence_counts(tracks: List[np.ndarray],
+                            gridshape: Tuple[int, int],
+                            device=None) -> np.ndarray:
+    """Visits per cell over a list of ``(len, 2)`` (row, col)
+    trajectories, as a numpy int16 ``(nrow, ncol)`` map.
+
+    The tracks are concatenated and counted on ``device`` (the CPU when
+    None) by :func:`presence_histogram_batch`. The int32 counts are cast
+    to int16 as the JAX package casts its int64 ones: a cell above 32767
+    visits wraps the same way, since both casts keep the low 16 bits.
+    """
+    nrow, ncol = int(gridshape[0]), int(gridshape[1])
+    if tracks:
+        pts = np.concatenate([np.asarray(t).reshape(-1, 2) for t in tracks])
+    else:
+        pts = np.zeros((0, 2), np.int16)
+    if pts.dtype != np.int16:
+        pts = pts.astype(np.int32)
+    pts = torch.from_numpy(np.ascontiguousarray(pts.T)).to(device)
+    counts = presence_histogram_batch(pts[0], pts[1], nrow, ncol)
+    return counts.cpu().numpy().astype(np.int16)
+
+
+def compute_smooth_presence_counts(tracks: List[np.ndarray],
+                                   gridshape: Tuple[int, int],
+                                   radius: float, device=None) -> np.ndarray:
+    """The smoothed count map of a list of trajectories, float32
+    (ssrs/movmodel.py:422-439)."""
+    counts = compute_presence_counts(tracks, gridshape, device=device)
+    out = smooth_presence(torch.from_numpy(counts).to(device), int(radius))
+    return out.cpu().numpy().astype(np.float32)
+
+
+def smooth_presence_from_counts(count_mat: torch.Tensor,
+                                radius: float) -> torch.Tensor:
+    """Smooth a count map on its device."""
+    return smooth_presence(count_mat, int(radius))

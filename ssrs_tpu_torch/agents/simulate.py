@@ -1,7 +1,9 @@
 """The agent simulation core: all tracks advance in lockstep.
 
 The PyTorch counterpart of ``ssrs_tpu/agents/simulate.py``, for the
-parts the uniform-mode run uses. The reference simulates each track
+parts the uniform-mode run uses: the compacting driver, the recording
+driver that rebuilds every trajectory, and the non-compacting
+``simulate_presence``. The reference simulates each track
 with a sequential Python loop in a process pool (ssrs/movmodel.py:264-318);
 here the whole population advances one step per launch of the fused step
 kernel (``agents/fused_step.py``):
@@ -21,9 +23,10 @@ kernel (``agents/fused_step.py``):
 
 Presence accumulation is DELAYED BY ONE STEP, as in the JAX package: step
 t counts the *carried* position with the previous step's alive flag
-(``palive``), and :func:`flush_pending` adds the pending positions before
-every compaction and at the end. The counted multiset of (position,
-alive) pairs equals counting each new position at once.
+(``palive``), and :func:`flush_pending` adds the pending positions, through
+the presence histogram kernel (``agents/presence_hist.py``), before every
+compaction and at the end. The counted multiset of (position, alive)
+pairs equals counting each new position at once.
 
 The step counter ``SimState.step`` is a host integer: the compacting loop
 knows how many steps it launched, so the burn-in and cap decisions need no
@@ -33,15 +36,18 @@ device read.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import time
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..native import make_builder
 from .fused_step import fused_step
 from .moves import (CENTER_ZERO, NEIGHBOR_DELTAS, NEIGHBOR_NORMS_INV,
                     directional_probs, restriction_table)
+from .presence_hist import presence_histogram
 
 
 class TrackParams(NamedTuple):
@@ -232,15 +238,33 @@ def _alive_and_push(params: TrackParams, state: SimState):
     return state.alive, pr, pc
 
 
+# flushes since the last reset_flush_count(); a flush on the card launches
+# presence_histogram once
+_flushes = 0
+
+
+def flush_count() -> int:
+    """Number of :func:`flush_pending` calls."""
+    return _flushes
+
+
+def reset_flush_count() -> None:
+    global _flushes
+    _flushes = 0
+
+
 def flush_pending(state: SimState) -> SimState:
     """Add the pending delayed-presence contribution (the carried
     positions weighted by ``palive``) into ``state.presence`` in place,
+    through the presence histogram kernel (``agents/presence_hist.py``),
     and clear ``palive`` so later steps cannot count it twice. Call at
     the end of a run and before any compaction of the agent axis."""
-    ncol = state.presence.shape[1]
-    flat = state.pos_r.long() * ncol + state.pos_c.long()
-    state.presence.view(-1).index_add_(0, flat,
-                                       state.palive.to(torch.int32))
+    global _flushes
+    nrow, ncol = state.presence.shape
+    state.presence.add_(presence_histogram(
+        state.pos_r, state.pos_c, state.palive.to(torch.float32), nrow,
+        ncol))
+    _flushes += 1
     return dataclasses.replace(state,
                                palive=torch.zeros_like(state.palive))
 
@@ -322,6 +346,82 @@ def _compact_body(state: SimState, m: int):
         palive=state.palive[order]), order
 
 
+def _prologue(params: TrackParams, start_rc, generator: torch.Generator,
+              updraft, potential, valid, base_flat, dirp):
+    """The initial state and the step function of a driver, on
+    ``generator.device``; the weight table is built from ``updraft`` and
+    ``potential`` unless ``base_flat`` is given."""
+    device = generator.device
+    if dirp is None:
+        dirp = torch.from_numpy(directional_probs(params.move_dirn))
+    dirp = dirp.to(device=device, dtype=torch.float32)
+    restr = torch.from_numpy(restriction_table()).to(device)
+    if base_flat is None:
+        if updraft is None:
+            raise NotImplementedError(
+                "the directed random walk ('drw', no weight table) is not "
+                'ported yet (ROADMAP.md)')
+        updraft = torch.as_tensor(updraft, dtype=torch.float32,
+                                  device=device)
+        if potential is not None:
+            potential = torch.as_tensor(potential, dtype=torch.float32,
+                                        device=device)
+        base_flat = prepared_weights(updraft, potential, dirp,
+                                     params.weight_dtype)
+    state = init_state(params, start_rc, valid=valid, device=device)
+    return state, make_step_fn(params, base_flat, dirp, restr)
+
+
+def simulate_presence(params: TrackParams, start_rc,
+                      generator: torch.Generator, updraft=None,
+                      potential=None, record_tracks: bool = False,
+                      chunk: int = 128, valid=None,
+                      base_flat: Optional[torch.Tensor] = None,
+                      dirp: Optional[torch.Tensor] = None):
+    """Presence simulation without compaction (the counterpart of the
+    JAX package's jitted ``simulate_presence``).
+
+    Runs on ``generator.device``; ``base_flat``, ``dirp`` and ``valid`` as
+    in :func:`simulate_presence_compacting`.
+
+    Without ``record_tracks``: chunks of ``chunk`` steps, reading the
+    alive count once per chunk, until every agent is dead or after
+    ``params.nsteps`` steps. Returns ``(presence int32 (nrow, ncol),
+    steps taken)``.
+
+    With ``record_tracks``: all ``params.nsteps`` steps, and also the
+    ``(nsteps+1, N, 2)`` int16 track array (the starts, then each step's
+    new positions; a dead agent repeats its last cell) and the int32
+    ``(N,)`` lengths, 1 (the start) plus the moves made. Small runs only:
+    the array takes ``nsteps * N * 4`` bytes on the device. Returns
+    ``(presence, steps, tracks, lengths)``.
+    """
+    state, step = _prologue(params, start_rc, generator, updraft,
+                            potential, valid, base_flat, dirp)
+    if record_tracks:
+        n = state.pos_r.shape[0]
+        tracks = torch.empty((params.nsteps + 1, n, 2), dtype=torch.int16,
+                             device=state.pos_r.device)
+        tracks[0, :, 0] = state.pos_r
+        tracks[0, :, 1] = state.pos_c
+        lengths = torch.ones(n, dtype=torch.int32, device=tracks.device)
+        for t in range(1, params.nsteps + 1):
+            state = step(state, generator=generator)
+            tracks[t, :, 0] = state.pos_r
+            tracks[t, :, 1] = state.pos_c
+            lengths += state.alive
+        state = flush_pending(state)
+        return state.presence, state.step, tracks, lengths
+    # optimistic initial count, as in simulate_presence_compacting
+    n_alive = state.pos_r.shape[0]
+    while state.step < params.nsteps and n_alive > 0:
+        for _ in range(min(chunk, params.nsteps - state.step)):
+            state = step(state, generator=generator)
+        n_alive = int(state.alive.sum())
+    state = flush_pending(state)
+    return state.presence, state.step
+
+
 def simulate_presence_compacting(params: TrackParams, start_rc,
                                  generator: torch.Generator,
                                  updraft=None, potential=None,
@@ -348,26 +448,9 @@ def simulate_presence_compacting(params: TrackParams, start_rc,
 
     Returns (presence int32 (nrow, ncol) on the device, steps taken).
     """
-    device = generator.device
-    if dirp is None:
-        dirp = torch.from_numpy(directional_probs(params.move_dirn))
-    dirp = dirp.to(device=device, dtype=torch.float32)
-    restr = torch.from_numpy(restriction_table()).to(device)
-    if base_flat is None:
-        if updraft is None:
-            raise NotImplementedError(
-                "the directed random walk ('drw', no weight table) is not "
-                'ported yet (ROADMAP.md)')
-        updraft = torch.as_tensor(updraft, dtype=torch.float32,
-                                  device=device)
-        if potential is not None:
-            potential = torch.as_tensor(potential, dtype=torch.float32,
-                                        device=device)
-        base_flat = prepared_weights(updraft, potential, dirp,
-                                     params.weight_dtype)
+    state, step = _prologue(params, start_rc, generator, updraft,
+                            potential, valid, base_flat, dirp)
     floor = max(min_bucket, _norm_tail_bucket(tail_bucket, min_bucket))
-    state = init_state(params, start_rc, valid=valid, device=device)
-    step = make_step_fn(params, base_flat, dirp, restr)
     # optimistic initial count: a population that starts all dead ends
     # the loop after one chunk of no-op steps
     n_alive = state.pos_r.shape[0]
@@ -382,3 +465,107 @@ def simulate_presence_compacting(params: TrackParams, start_rc,
                 state, _ = _compact_body(state, m)
     state = flush_pending(state)
     return state.presence, state.step
+
+
+class RecordedRun(NamedTuple):
+    """What the recording driver produced, and how."""
+    presence: torch.Tensor     # (nrow, ncol) int32 on the device
+    tracks: List[np.ndarray]   # per agent, int16 (len, 2), agent order
+    steps: int                 # steps taken
+    builder: str               # 'native' (C++) or 'python'
+    build_seconds: float       # host seconds spent rebuilding the tracks
+
+
+_TORCH_VIEWS = (torch.int16, torch.int32, torch.bool)
+_NUMPY_VIEWS = (np.int16, np.int32, np.bool_)
+
+
+def _split_emissions(buf, t_len: int, b: int, views):
+    """Views of one chunk's emission buffer, a flat byte array (torch on
+    the device or numpy on the host, ``views`` names the dtypes): the
+    positions int16 ``(t_len, b, 2)``, the id vector int32 ``(b,)`` and
+    the alive flags bool ``(t_len, b)``."""
+    i16, i32, flag = views
+    npos, nids = 4 * t_len * b, 4 * b
+    return (buf[:npos].view(i16).reshape(t_len, b, 2),
+            buf[npos:npos + nids].view(i32),
+            buf[npos + nids:].view(flag).reshape(t_len, b))
+
+
+def record_tracks_run(params: TrackParams, start_rc,
+                      generator: torch.Generator, updraft=None,
+                      potential=None, chunk: int = 512,
+                      min_bucket: int = 1024,
+                      base_flat: Optional[torch.Tensor] = None,
+                      dirp: Optional[torch.Tensor] = None) -> RecordedRun:
+    """:func:`simulate_tracks_recorded` with its step count and the
+    builder's name and time."""
+    start_rc = np.asarray(start_rc, np.int32)
+    state, step = _prologue(params, start_rc, generator, updraft,
+                            potential, None, base_flat, dirp)
+    device = state.pos_r.device
+    builder = make_builder(start_rc.astype(np.int16))
+    ids = torch.arange(start_rc.shape[0], dtype=torch.int32, device=device)
+    build_s = 0.
+    n_alive = ids.shape[0]
+    while state.step < params.nsteps and n_alive > 0:
+        t_len = min(chunk, params.nsteps - state.step)
+        b = ids.shape[0]
+        buf = torch.empty(5 * t_len * b + 4 * b, dtype=torch.uint8,
+                          device=device)
+        pos, ids_out, alive = _split_emissions(buf, t_len, b, _TORCH_VIEWS)
+        ids_out.copy_(ids)
+        for t in range(t_len):
+            state = step(state, generator=generator)
+            pos[t, :, 0] = state.pos_r
+            pos[t, :, 1] = state.pos_c
+            alive[t] = state.alive
+        # the chunk's one device-to-host copy
+        pos_h, ids_h, alive_h = _split_emissions(buf.cpu().numpy(), t_len,
+                                                 b, _NUMPY_VIEWS)
+        # the last row holds the alive flags after the chunk
+        n_alive = int(alive_h[-1].sum())
+        t0 = time.perf_counter()
+        builder.append_chunk(pos_h, alive_h, ids_h)
+        build_s += time.perf_counter() - t0
+        if n_alive > 0 and b > min_bucket:
+            m = _bucket_for(n_alive, min_bucket)
+            if m < b:
+                state, order = _compact_body(state, m)
+                ids = ids[order]
+    state = flush_pending(state)
+    t0 = time.perf_counter()
+    tracks = builder.export()
+    build_s += time.perf_counter() - t0
+    return RecordedRun(state.presence, tracks, state.step, builder.kind,
+                       build_s)
+
+
+def simulate_tracks_recorded(params: TrackParams, start_rc,
+                             generator: torch.Generator, updraft=None,
+                             potential=None, chunk: int = 512,
+                             min_bucket: int = 1024,
+                             base_flat: Optional[torch.Tensor] = None,
+                             dirp: Optional[torch.Tensor] = None):
+    """Full-trajectory simulation with early exit and compaction.
+
+    The compacting loop of :func:`simulate_presence_compacting` (same
+    ``chunk``, ``min_bucket``, bucket ladder and stable compaction, no
+    tail bucket), which also writes each step's new positions (int16) and
+    alive flags into a per-chunk device buffer together with the id
+    vector that maps batch slots to agents; compaction permutes the ids
+    with the order it packs the agents by. The buffer comes to the host
+    in one copy per chunk, and the track builder (``ssrs_tpu_torch.native``)
+    appends each agent's alive prefix of the chunk to its trajectory. So
+    the step cap can be the reference's ``(nrow/2)*(ncol/2)`` without a
+    dense ``(cap, N, 2)`` array.
+
+    Returns (presence int32 (nrow, ncol) on the device, list of int16
+    ``(len, 2)`` trajectories in agent order, reference format,
+    ssrs/movmodel.py:318).
+    """
+    run = record_tracks_run(params, start_rc, generator, updraft=updraft,
+                            potential=potential, chunk=chunk,
+                            min_bucket=min_bucket, base_flat=base_flat,
+                            dirp=dirp)
+    return run.presence, run.tracks

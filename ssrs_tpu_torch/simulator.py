@@ -2,11 +2,13 @@
 
 The PyTorch counterpart of ``ssrs_tpu/simulator.py`` for one slice: the
 uniform-mode ``fluidflow`` run with the host float64 direct potential
-solve. It keeps the JAX package's constructor flow (region -> terrain ->
+solve, with recorded trajectories for runs up to ``track_pkl_budget``
+tracks (the default ``track_count``) and presence counts alone above.
+It keeps the JAX package's constructor flow (region -> terrain ->
 orographic updraft), its output-directory layout and its artifact names
-and formats (``*_orograph.npy``, ``*_potential.npy``, ``*_counts.npy``,
-``summary_presence.npy``, ``phase_timings.json``), so one package's
-cached fields feed the other.
+and formats (``*_orograph.npy``, ``*_potential.npy``, ``*_tracks.pkl``,
+``*_counts.npy``, ``summary_presence.npy``, ``phase_timings.json``), so
+one package's cached fields feed the other.
 
 Every configuration outside the slice raises ``NotImplementedError``
 naming its item in ROADMAP.md. Turbines (USWTDB) and plotting are not
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import time
 from dataclasses import asdict
 from typing import List
@@ -28,8 +31,9 @@ from .config import Config
 from .core.grid import Grid
 from .core.rng import case_generator
 from .core.timing import PhaseTimer, elapsed_str
-from .agents.presence import smooth_presence
-from .agents.simulate import TrackParams, simulate_presence_compacting
+from .agents.presence import compute_presence_counts, smooth_presence
+from .agents.simulate import (TrackParams, record_tracks_run,
+                              simulate_presence_compacting)
 from .agents.starts import get_starting_indices
 from .data import (Terrain, get_raster_in_projected_crs, transform_bounds,
                    transform_coordinates)
@@ -61,12 +65,6 @@ def _check_slice(cfg: Config) -> None:
             f'potential_solver={cfg.potential_solver!r}: the port runs the '
             "host float64 'direct' solver only; the refined device solver "
             f'is the next item ({todo}: refined device solver)')
-    if int(cfg.track_count) <= int(cfg.track_pkl_budget):
-        raise NotImplementedError(
-            f'track_count={cfg.track_count} <= track_pkl_budget='
-            f'{cfg.track_pkl_budget}: the recorded-track .pkl path is not '
-            f'ported yet ({todo}: recorded-track path); lower '
-            'track_pkl_budget to run the presence-count path')
     if int(cfg.mesh_devices) > 1:
         raise NotImplementedError(
             f'mesh_devices={cfg.mesh_devices}: the port runs on one device; '
@@ -268,7 +266,8 @@ class Simulator(Config):
     def simulate_tracks(self) -> None:
         """Simulate all tracks of the uniform case
         (ssrs/simulator.py:332-386) and save the ``_counts.npy``
-        presence counts."""
+        presence counts; a run of at most ``track_pkl_budget`` tracks
+        also saves its trajectories as ``_tracks.pkl``."""
         with self.timer.phase('simulate_tracks',
                               tracks=int(self.track_count),
                               cases=len(self.case_ids)):
@@ -286,6 +285,9 @@ class Simulator(Config):
         starts = np.stack([starting_rows, starting_cols],
                           axis=1).astype(np.int32)
         params = self._track_params()
+        # reference-format .pkl trajectories for runs up to
+        # track_pkl_budget tracks; larger runs keep only the counts
+        record = int(self.track_count) <= int(self.track_pkl_budget)
         tail = int(self.track_tail_bucket) \
             if self.track_tail_bucket != 'auto' else 'auto'
         for case_id in self.case_ids:
@@ -294,17 +296,23 @@ class Simulator(Config):
                 updraft = self.load_updrafts(case_id)[real_id]
                 potential = self.get_directional_potential(
                     updraft, case_id, real_id)
+            potential = torch.from_numpy(potential).to(self.device)
             id_str = self._get_id_string(case_id, real_id)
             print(f'{id_str}: Simulating {self.track_count} tracks..',
                   end='', flush=True)
             start_time = time.time()
             gen = case_generator(self.sim_seed, case_id, real_id, 'tracks',
                                  self.device)
-            with self.timer.phase('tracks'):
-                presence, steps = simulate_presence_compacting(
-                    params, starts, gen, updraft=updraft,
-                    potential=torch.from_numpy(potential).to(self.device),
-                    tail_bucket=tail)
+            with self.timer.phase('tracks', recorded=record):
+                if record:
+                    run = record_tracks_run(params, starts, gen,
+                                            updraft=updraft,
+                                            potential=potential)
+                    presence, steps = run.presence, run.steps
+                else:
+                    presence, steps = simulate_presence_compacting(
+                        params, starts, gen, updraft=updraft,
+                        potential=potential, tail_bucket=tail)
                 presence = presence.cpu().numpy()
             print(f'took {elapsed_str(start_time)}', flush=True)
             # useful steps = presence mass minus the start deposits
@@ -312,6 +320,14 @@ class Simulator(Config):
                 steps=int(steps),
                 useful_steps=int(presence.sum(dtype=np.int64))
                 - int(self.track_count))
+            if record:
+                self.timer.records[-1].update(
+                    builder=run.builder, build_seconds=run.build_seconds)
+                fname = self._get_tracks_fname(case_id, real_id,
+                                               self.mode_data_dir)
+                with self.timer.phase('write_tracks'):
+                    with open(f'{fname}.pkl', 'wb') as fobj:
+                        pickle.dump(run.tracks, fobj)
             fname = self._get_counts_fname(case_id, real_id,
                                            self.mode_data_dir)
             np.save(f'{fname}.npy', presence.astype(np.int32))
@@ -328,12 +344,27 @@ class Simulator(Config):
                             f'{self._get_id_string(case_id, real_id)}'
                             '_counts')
 
+    def _get_tracks_fname(self, case_id, real_id, dirname):
+        return os.path.join(dirname,
+                            f'{self._get_id_string(case_id, real_id)}'
+                            '_tracks')
+
     def get_presence_counts(self, case_id: str, real_id: int) -> np.ndarray:
-        """Presence counts of one realization (the ``_counts.npy``
-        artifact)."""
+        """Presence counts of one realization: the ``_counts.npy``
+        artifact when present, else the recount of the ``_tracks.pkl``
+        trajectories on the run's device (int16, as the JAX package's)."""
         fname = self._get_counts_fname(case_id, real_id,
                                        self.mode_data_dir)
-        return np.load(f'{fname}.npy')
+        try:
+            return np.load(f'{fname}.npy')
+        except FileNotFoundError:
+            tname = self._get_tracks_fname(case_id, real_id,
+                                           self.mode_data_dir)
+            # this run's own artifact, written by simulate_tracks
+            with open(f'{tname}.pkl', 'rb') as fobj:
+                tracks = pickle.load(fobj)
+            return compute_presence_counts(tracks, self.gridsize,
+                                           device=self.device)
 
     # ---- presence maps ---------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Tests of the port's CUDA kernel and its card path (marker ``gpu``).
+"""Tests of the port's CUDA kernels and its card path (marker ``gpu``).
 
 They skip without a CUDA device. This file imports no JAX, so it also
 runs on a machine that has the card but no JAX:
@@ -8,12 +8,15 @@ runs on a machine that has the card but no JAX:
 (``--noconftest``: the suite's conftest.py configures JAX.)
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 import ssrs_tpu_torch
 from ssrs_tpu_torch.agents import fused_step as fs
+from ssrs_tpu_torch.agents import presence_hist as ph
 from ssrs_tpu_torch.agents.moves import directional_probs, restriction_table
 from ssrs_tpu_torch.agents.presence import smooth_presence
 
@@ -111,3 +114,100 @@ def test_simulator_card_matches_cpu(cuda, tmp_path):
         m = smooth_presence(torch.from_numpy(counts), 3).numpy()
         maps.append(m.astype(np.float64) / m.sum())
     assert np.abs(maps[0] - maps[1]).sum() < 0.08
+
+
+def _hist_indices(rng, n, size):
+    """Indices mostly inside [0, size), some negative, equal to size,
+    or far beyond it."""
+    idx = rng.integers(0, size, n)
+    odd = rng.random(n)
+    idx[odd < 0.05] = -1
+    idx[(odd >= 0.05) & (odd < 0.1)] = -37
+    idx[(odd >= 0.1) & (odd < 0.15)] = size
+    idx[(odd >= 0.15) & (odd < 0.2)] = size + 200
+    return idx
+
+
+@pytest.mark.parametrize('grid', [(96, 130), (7, 5), (500, 600)])
+@pytest.mark.parametrize('n', [0, 700, 100_000])
+def test_weighted_histogram_matches_plain_on_card(cuda, grid, n):
+    """Kernel B against its plain version on the card, with 0/1, small
+    integer, quarter and bf16-rounded (257, 259) weights: exact."""
+    nrow, ncol = grid
+    rng = np.random.default_rng(n + nrow)
+    r = torch.from_numpy(_hist_indices(rng, n, nrow).astype(np.int32))
+    c = torch.from_numpy(_hist_indices(rng, n, ncol).astype(np.int32))
+    for w in (rng.integers(0, 2, n), rng.integers(0, 6, n),
+              rng.integers(0, 21, n) / 4.,
+              rng.choice([0., 257., 259.], n)):
+        w = torch.from_numpy(w.astype(np.float32))
+        args = (r.to(cuda), c.to(cuda), w.to(cuda), nrow, ncol)
+        got = ph.presence_histogram(*args)
+        want = ph.presence_histogram_plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and tuple(got.shape) == grid
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), ph.presence_histogram(
+            r, c, w, nrow, ncol))
+
+
+@pytest.mark.parametrize('dtype', [torch.int16, torch.int32])
+@pytest.mark.parametrize('grid', [(96, 130), (7, 5), (500, 600)])
+@pytest.mark.parametrize('n', [0, 700, 1_000_000])
+def test_count_histogram_matches_plain_on_card(cuda, grid, n, dtype):
+    """Kernel C against its plain version on the card, with dead points
+    (row -1, arbitrary columns): exact."""
+    nrow, ncol = grid
+    rng = np.random.default_rng(n + ncol)
+    r = _hist_indices(rng, n, nrow)
+    c = _hist_indices(rng, n, ncol)
+    r[rng.random(n) < 0.3] = -1
+    r, c = (torch.from_numpy(x).to(dtype).to(cuda) for x in (r, c))
+    got = ph.presence_histogram_batch(r, c, nrow, ncol)
+    want = ph.presence_histogram_batch_plain(r, c, nrow, ncol)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and tuple(got.shape) == grid
+    assert torch.equal(got, want)
+
+
+def test_histogram_launch_counters_count_card_launches(cuda):
+    r = torch.arange(10, dtype=torch.int32, device=cuda)
+    ph.reset_launch_count()
+    for _ in range(2):
+        ph.presence_histogram(r, r, torch.ones(10, device=cuda), 16, 16)
+    ph.presence_histogram_batch(r, r, 16, 16)
+    ph.presence_histogram_batch(r.to(torch.int16), r.to(torch.int16), 16,
+                                16)
+    ph.presence_histogram_plain(r, r, torch.ones(10, device=cuda), 16, 16)
+    ph.presence_histogram_batch_plain(r, r, 16, 16)
+    assert ph.launch_count('presence_histogram') == 2
+    assert ph.launch_count('presence_histogram_batch') == 2
+
+
+def test_recorded_run_on_card_counts_equal_recount(cuda, tmp_path):
+    """A small recorded run (the default budget) on the card: the counts
+    equal the recount of its ``_tracks.pkl``; kernel A ran every step,
+    kernel B every flush and kernel C the recount."""
+    from ssrs_tpu_torch.agents import simulate as tsim
+    cfg = dict(run_name='wy_rec', sim_mode='uniform', sim_seed=11,
+               region_width_km=(12., 10.), resolution=200.,
+               track_count=2000, track_start_region=(1., 11., 1., 2.),
+               track_max_steps=400, potential_solver='direct',
+               mesh_devices=1, out_dir=str(tmp_path))
+    sim = ssrs_tpu_torch.Simulator(ssrs_tpu_torch.Config(**cfg),
+                                   device=cuda)
+    fs.reset_launch_count()
+    ph.reset_launch_count()
+    tsim.reset_flush_count()
+    sim.simulate_tracks()
+    rec = {r['phase']: r for r in sim.timer.records}['tracks']
+    assert rec['recorded'] and fs.launch_count() == rec['steps']
+    assert ph.launch_count('presence_histogram') == tsim.flush_count() >= 1
+    counts_path = os.path.join(
+        sim.mode_data_dir, 's10d270_d0_t75_fluidflow_r0_counts.npy')
+    counts = np.load(counts_path)
+    os.remove(counts_path)
+    recount = sim.get_presence_counts(sim.case_ids[0], 0)
+    assert ph.launch_count('presence_histogram_batch') == 1
+    assert recount.dtype == np.int16
+    np.testing.assert_array_equal(recount.astype(np.int32), counts)

@@ -171,7 +171,7 @@ def test_default_device_needs_a_card(tmp_path):
 @pytest.mark.parametrize('override', [
     dict(sim_mode='seasonal'), dict(sim_mode='snapshot'),
     dict(thermals_realization_count=1), dict(movement_model='drw'),
-    dict(potential_solver='auto'), dict(track_pkl_budget=10_000),
+    dict(potential_solver='auto'), dict(track_presence_impl='scatter'),
     dict(mesh_devices=2), dict(track_step_impl='xla'),
 ])
 def test_out_of_slice_configs_raise(tmp_path, override):
