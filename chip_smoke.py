@@ -397,8 +397,17 @@ def phase_recorded(torch, device_name, out):
     sim = Simulator(cfg)
     _reset_counts()
     sim.simulate_tracks()
+    launched = _read_counts()
     records = {r['phase']: r for r in sim.timer.records}
     rec = records['tracks']
+    steps = rec['steps']
+    if launched['fused_step'] != steps or steps <= 0:
+        fail(f'recorded run: {launched["fused_step"]} step launches for '
+             f'{steps} steps')
+    if launched['presence_histogram'] != launched['flushes'] or \
+            launched['flushes'] < 1:
+        fail(f'recorded run: {launched["presence_histogram"]} histogram '
+             f'launches for {launched["flushes"]} flushes')
     if 'potential' not in records or records['potential']['seconds'] > 1.:
         fail('recorded run: the potential was not read from the cache')
     if not rec.get('recorded'):
@@ -422,30 +431,29 @@ def phase_recorded(torch, device_name, out):
     if int(counts.sum(dtype=np.int64)) != int(lengths.sum()):
         fail(f'recorded run: counts mass {counts.sum()} != sum of lengths '
              f'{lengths.sum()}')
-    # the int32 recount of the .pkl through kernel C, cell for cell
+    # the pkl fallback of get_presence_counts: one recount through
+    # kernel C, returned as int16, as the JAX package's
+    os.replace(counts_path, counts_path + '.moved')
+    _reset_counts()
+    fallback = sim.get_presence_counts(sim.case_ids[0], 0)
+    recounted = _read_counts()
+    if recounted['presence_histogram_batch'] != 1 or \
+            recounted['fused_step'] or recounted['presence_histogram']:
+        fail(f'recorded run: the pkl fallback launched {recounted}, not '
+             'the count kernel once')
+    launched['presence_histogram_batch'] = \
+        recounted['presence_histogram_batch']
+    # the int32 recount of the .pkl through kernel C, cell for cell (after
+    # the counts are read: this launch is the smoke's, not the path's)
     pts = torch.from_numpy(np.ascontiguousarray(
         np.concatenate(tracks).T)).to(sim.device)
     recount = presence_histogram_batch(pts[0], pts[1], NROW, NCOL)
     if not np.array_equal(recount.cpu().numpy(), counts):
         fail('recorded run: _counts.npy differs from the recount of the pkl')
-    # the pkl fallback of get_presence_counts: int16, as the JAX package's
-    os.replace(counts_path, counts_path + '.moved')
-    fallback = sim.get_presence_counts(sim.case_ids[0], 0)
     if fallback.dtype != np.int16 or \
             not np.array_equal(fallback, counts.astype(np.int16)):
         fail('recorded run: get_presence_counts without _counts.npy is not '
              'the int16 recount')
-    launched = _read_counts()
-    steps = rec['steps']
-    if launched['fused_step'] != steps or steps <= 0:
-        fail(f'recorded run: {launched["fused_step"]} step launches for '
-             f'{steps} steps')
-    if launched['presence_histogram'] != launched['flushes'] or \
-            launched['flushes'] < 1:
-        fail(f'recorded run: {launched["presence_histogram"]} histogram '
-             f'launches for {launched["flushes"]} flushes')
-    if launched['presence_histogram_batch'] < 1:
-        fail('recorded run: the count kernel never launched')
     useful = rec['useful_steps']
     say(f'recorded run: {cfg.track_count} tracks, {steps} steps, '
         f'{launched["flushes"]} flushes, {useful} agent-steps in '
@@ -535,8 +543,9 @@ def main() -> int:
             'max_abs_err': tm['max_abs_err'], 'ms': tm['ms'],
             'plain_ms': tm['plain_ms']})
     for k in kernels:
-        # launches: the recorded-track run, which runs all three kernels;
-        # launches_uniform_run: the 100,000-track run (A and B)
+        # launches: the recorded-track run (A and B) and its pkl fallback
+        # (C), each counted from 0 just before it; launches_uniform_run:
+        # the 100,000-track run (A and B)
         k['launches'] = recorded[k['name']]
         k['launches_uniform_run'] = main_run[k['name']]
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -1,9 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 At first use, every source in ``ssrs_tpu_torch/csrc/`` is compiled by
-``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
-together, and linked into one shared library with a plain C interface,
-which is loaded with ``ctypes``. The library goes to
+``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+interface, which is loaded with ``ctypes``. The library goes to
 ``build/ssrs_tpu_torch/`` beside the package (git ignores ``build/``)
 and is named by a hash of the sources and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. A failed build
@@ -25,10 +24,9 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), 'build', 'ssrs_tpu_torch')
 
-_ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
-NVCC_FLAGS = (*_ARCH, '-std=c++17', '-O3', '-fmad=false', '-Xptxas', '-v',
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-fmad=false', '-Xptxas', '-v', '-shared',
               '-Xcompiler', '-fPIC')
-LINK_FLAGS = (*_ARCH, '-shared')
 
 # what the last call to load_library did: seconds spent building (0 when
 # the library was already built) and nvcc's output (ptxas register and
@@ -54,7 +52,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    digest = hashlib.sha256(' '.join(NVCC_FLAGS + LINK_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     for path in _sources():
         digest.update(os.path.basename(path).encode())
         with open(path, 'rb') as fobj:
@@ -63,49 +61,21 @@ def library_path() -> str:
                         f'libssrs_kernels_{digest.hexdigest()[:16]}.so')
 
 
-def _run_all(cmds, logdir: str):
-    """Run the commands at once; wait for all. Returns (returncode,
-    output) per command."""
-    procs = []
-    for k, cmd in enumerate(cmds):
-        log = open(os.path.join(logdir, f'{k}.log'), 'w+')
-        procs.append((subprocess.Popen(cmd, stdout=log,
-                                       stderr=subprocess.STDOUT), log))
-    results = []
-    for proc, log in procs:
-        with log:
-            code = proc.wait()
-            log.seek(0)
-            results.append((code, log.read()))
-    return results
-
-
 def _compile(out_path: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     units = [p for p in _sources() if p.endswith('.cu')]
-    nvcc = _nvcc()
-    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
-    try:
-        t0 = time.perf_counter()
-        objs = [os.path.join(tmpdir, os.path.basename(p) + '.o')
-                for p in units]
-        cmds = [[nvcc, *NVCC_FLAGS, '-c', '-o', obj, src]
-                for src, obj in zip(units, objs)]
-        lib = os.path.join(tmpdir, 'lib.so')
-        cmds_link = [[nvcc, *LINK_FLAGS, '-o', lib, *objs]]
-        log = ''
-        for batch in (cmds, cmds_link):
-            for cmd, (code, out) in zip(batch, _run_all(batch, tmpdir)):
-                if code != 0:
-                    raise RuntimeError(f'nvcc failed ({code}): '
-                                       f'{" ".join(cmd)}\n{out}')
-                log += out
-        # atomic: a concurrent process never sees half a library
-        os.replace(lib, out_path)
-        build_info['seconds'] = time.perf_counter() - t0
-        build_info['log'] = log
-    finally:
-        shutil.rmtree(tmpdir, ignore_errors=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *units]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'nvcc failed ({proc.returncode}): '
+                           f'{" ".join(cmd)}\n{proc.stderr}{proc.stdout}')
+    os.replace(tmp, out_path)  # atomic: a concurrent process never sees half
+    build_info['seconds'] = time.perf_counter() - t0
+    build_info['log'] = proc.stderr + proc.stdout
 
 
 def _declare(lib: ctypes.CDLL) -> None:

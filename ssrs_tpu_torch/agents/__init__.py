@@ -14,8 +14,7 @@ from .presence_hist import (presence_histogram_batch_plain,
                             presence_histogram_plain)
 from .simulate import (RecordedRun, SimState, TrackParams, flush_count,
                        flush_pending, init_state, make_step_fn,
-                       prepared_weights, record_tracks_run,
-                       reset_flush_count, simulate_presence,
+                       prepared_weights, reset_flush_count, simulate_presence,
                        simulate_presence_compacting,
                        simulate_tracks_recorded, state_from_numpy,
                        weights_from_numpy)
@@ -28,7 +27,7 @@ __all__ = ['fused_step_plain', 'launch_count',
            'smooth_presence_from_counts', 'presence_histogram_batch_plain',
            'presence_histogram_plain', 'RecordedRun', 'SimState',
            'TrackParams', 'flush_count', 'flush_pending', 'init_state',
-           'make_step_fn', 'prepared_weights', 'record_tracks_run',
+           'make_step_fn', 'prepared_weights',
            'reset_flush_count', 'simulate_presence',
            'simulate_presence_compacting', 'simulate_tracks_recorded',
            'state_from_numpy', 'weights_from_numpy',

@@ -492,14 +492,32 @@ def _split_emissions(buf, t_len: int, b: int, views):
             buf[npos + nids:].view(flag).reshape(t_len, b))
 
 
-def record_tracks_run(params: TrackParams, start_rc,
-                      generator: torch.Generator, updraft=None,
-                      potential=None, chunk: int = 512,
-                      min_bucket: int = 1024,
-                      base_flat: Optional[torch.Tensor] = None,
-                      dirp: Optional[torch.Tensor] = None) -> RecordedRun:
-    """:func:`simulate_tracks_recorded` with its step count and the
-    builder's name and time."""
+def simulate_tracks_recorded(params: TrackParams, start_rc,
+                             generator: torch.Generator, updraft=None,
+                             potential=None, chunk: int = 512,
+                             min_bucket: int = 1024,
+                             base_flat: Optional[torch.Tensor] = None,
+                             dirp: Optional[torch.Tensor] = None
+                             ) -> RecordedRun:
+    """Full-trajectory simulation with early exit and compaction.
+
+    The compacting loop of :func:`simulate_presence_compacting` (same
+    ``chunk``, ``min_bucket``, bucket ladder and stable compaction, no
+    tail bucket), which also writes each step's new positions (int16) and
+    alive flags into a per-chunk device buffer together with the id
+    vector that maps batch slots to agents; compaction permutes the ids
+    with the order it packs the agents by. The buffer comes to the host
+    in one copy per chunk, and the track builder (``ssrs_tpu_torch.native``)
+    appends each agent's alive prefix of the chunk to its trajectory. So
+    the step cap can be the reference's ``(nrow/2)*(ncol/2)`` without a
+    dense ``(cap, N, 2)`` array.
+
+    Returns a :class:`RecordedRun`: its first two fields are the JAX
+    driver's pair (presence int32 (nrow, ncol) on the device, list of
+    int16 ``(len, 2)`` trajectories in agent order, reference format,
+    ssrs/movmodel.py:318), then the steps taken and the builder's name
+    and seconds.
+    """
     start_rc = np.asarray(start_rc, np.int32)
     state, step = _prologue(params, start_rc, generator, updraft,
                             potential, None, base_flat, dirp)
@@ -539,33 +557,3 @@ def record_tracks_run(params: TrackParams, start_rc,
     build_s += time.perf_counter() - t0
     return RecordedRun(state.presence, tracks, state.step, builder.kind,
                        build_s)
-
-
-def simulate_tracks_recorded(params: TrackParams, start_rc,
-                             generator: torch.Generator, updraft=None,
-                             potential=None, chunk: int = 512,
-                             min_bucket: int = 1024,
-                             base_flat: Optional[torch.Tensor] = None,
-                             dirp: Optional[torch.Tensor] = None):
-    """Full-trajectory simulation with early exit and compaction.
-
-    The compacting loop of :func:`simulate_presence_compacting` (same
-    ``chunk``, ``min_bucket``, bucket ladder and stable compaction, no
-    tail bucket), which also writes each step's new positions (int16) and
-    alive flags into a per-chunk device buffer together with the id
-    vector that maps batch slots to agents; compaction permutes the ids
-    with the order it packs the agents by. The buffer comes to the host
-    in one copy per chunk, and the track builder (``ssrs_tpu_torch.native``)
-    appends each agent's alive prefix of the chunk to its trajectory. So
-    the step cap can be the reference's ``(nrow/2)*(ncol/2)`` without a
-    dense ``(cap, N, 2)`` array.
-
-    Returns (presence int32 (nrow, ncol) on the device, list of int16
-    ``(len, 2)`` trajectories in agent order, reference format,
-    ssrs/movmodel.py:318).
-    """
-    run = record_tracks_run(params, start_rc, generator, updraft=updraft,
-                            potential=potential, chunk=chunk,
-                            min_bucket=min_bucket, base_flat=base_flat,
-                            dirp=dirp)
-    return run.presence, run.tracks

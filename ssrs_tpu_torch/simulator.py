@@ -32,8 +32,8 @@ from .core.grid import Grid
 from .core.rng import case_generator
 from .core.timing import PhaseTimer, elapsed_str
 from .agents.presence import compute_presence_counts, smooth_presence
-from .agents.simulate import (TrackParams, record_tracks_run,
-                              simulate_presence_compacting)
+from .agents.simulate import (TrackParams, simulate_presence_compacting,
+                              simulate_tracks_recorded)
 from .agents.starts import get_starting_indices
 from .data import (Terrain, get_raster_in_projected_crs, transform_bounds,
                    transform_coordinates)
@@ -305,9 +305,9 @@ class Simulator(Config):
                                  self.device)
             with self.timer.phase('tracks', recorded=record):
                 if record:
-                    run = record_tracks_run(params, starts, gen,
-                                            updraft=updraft,
-                                            potential=potential)
+                    run = simulate_tracks_recorded(params, starts, gen,
+                                                   updraft=updraft,
+                                                   potential=potential)
                     presence, steps = run.presence, run.steps
                 else:
                     presence, steps = simulate_presence_compacting(

@@ -146,7 +146,7 @@ def _run_driver(driver, n, seed, nsteps, chunk=8, min_bucket=64):
     # different steps, so the batch shrinks chunk by chunk
     starts = _starts(n, seed, rows=(3, GRID[0] - 8))
     if driver == 'recorded':
-        presence, tracks = tsim.simulate_tracks_recorded(
+        presence, tracks, *_ = tsim.simulate_tracks_recorded(
             params, starts, gen, updraft=up, potential=pot, chunk=chunk,
             min_bucket=min_bucket)
     else:
@@ -199,10 +199,10 @@ def test_recorded_counts_equal_compacting_counts():
     up, pot = _fields()
     params = _params(tsim, 150)
     starts = _starts(1000, 6, rows=(3, GRID[0] - 8))
-    run = tsim.record_tracks_run(params, starts,
-                                 torch.Generator().manual_seed(4),
-                                 updraft=up, potential=pot, chunk=8,
-                                 min_bucket=64)
+    run = tsim.simulate_tracks_recorded(params, starts,
+                                        torch.Generator().manual_seed(4),
+                                        updraft=up, potential=pot, chunk=8,
+                                        min_bucket=64)
     presence, steps = tsim.simulate_presence_compacting(
         params, starts, torch.Generator().manual_seed(4), updraft=up,
         potential=pot, chunk=8, min_bucket=64)
@@ -228,7 +228,7 @@ def test_recorded_matches_jax_statistically(driver):
         pj, tj = jsim.simulate_tracks_recorded(
             _params(jsim, nsteps), starts, jax.random.key(9), updraft=up,
             potential=pot, chunk=128, min_bucket=1024)
-        pt, tt = tsim.simulate_tracks_recorded(
+        pt, tt, *_ = tsim.simulate_tracks_recorded(
             _params(tsim, nsteps), starts, gen, base_flat=base, chunk=64,
             min_bucket=256)
         assert len(tj) == len(tt) == n
