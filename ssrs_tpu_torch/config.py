@@ -88,16 +88,18 @@ class Config:
     track_max_steps: int = 0
     # presence accumulation mode of the JAX package (unused by the port)
     presence_accumulator: str = 'scan-scatter'
-    # potential solver: the port runs 'direct' (host float64 SuperLU);
-    # the JAX package's default 'auto' device solver is not ported yet
-    potential_solver: str = 'auto'  # auto, bicgstab, multigrid, dense
-    # scaled-residual target of the device potential solvers
+    # potential solver: 'auto' or 'refined' (the refined solver on the
+    # run's device), 'direct' or 'dense' (host float64 SuperLU); the JAX
+    # package's legacy 'mg' / 'multigrid' is not ported
+    potential_solver: str = 'auto'  # auto, refined, direct, dense
+    # scaled-residual target of the refined solver
     potential_tol: float = 1e-7
-    potential_maxiter: int = 0  # <=0 chooses a grid-dependent default
+    potential_maxiter: int = 0  # V-cycles per GCR solve; <= 0 means 60
     # largest grid (cells) on which a stalled device solve may fall back
     # to the float64 direct solver; <= 0 lifts the cap
     potential_fallback_max_unknowns: int = 8_000_000
-    # multi-case potential solves: 0 = auto (off), 1 = off, >1 = batch cap
+    # multi-case potential solves: 0 = auto (off), 1 = off, >1 = batch
+    # cap of the JAX package's batched solve, which the port does not have
     potential_batch: int = 0
     # number of devices to shard agents over (0 = all local)
     mesh_devices: int = 0

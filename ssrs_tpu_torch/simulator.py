@@ -1,20 +1,21 @@
 """The ``Simulator`` facade of the port, in uniform mode.
 
 The PyTorch counterpart of ``ssrs_tpu/simulator.py`` for one slice: the
-uniform-mode ``fluidflow`` run with the host float64 direct potential
-solve, with recorded trajectories for runs up to ``track_pkl_budget``
-tracks (the default ``track_count``) and presence counts alone above.
-It keeps the JAX package's constructor flow (region -> terrain ->
-orographic updraft), its output-directory layout and its artifact names
-and formats (``*_orograph.npy``, ``*_potential.npy``, ``*_tracks.pkl``,
-``*_counts.npy``, ``summary_presence.npy``, ``phase_timings.json``), so
-one package's cached fields feed the other.
+uniform-mode ``fluidflow`` run, with the directional potential from the
+refined solver on the run's device (``potential_solver='auto'``, the
+default, or ``'refined'``) or from the host float64 direct solve
+(``'direct'``, ``'dense'``), with recorded trajectories for runs up to
+``track_pkl_budget`` tracks (the default ``track_count``) and presence
+counts alone above. It keeps the JAX package's constructor flow (region
+-> terrain -> orographic updraft), its output-directory layout and its
+artifact names and formats (``*_orograph.npy``, ``*_potential.npy``,
+``*_tracks.pkl``, ``*_counts.npy``, ``summary_presence.npy``,
+``phase_timings.json``), so one package's cached fields feed the other.
 
 Every configuration outside the slice raises ``NotImplementedError``
 naming its item in ROADMAP.md. Turbines (USWTDB) and plotting are not
 ported; the terrain is the offline synthetic DEM.
 """
-
 from __future__ import annotations
 
 import json
@@ -40,7 +41,8 @@ from .data import (Terrain, get_raster_in_projected_crs, transform_bounds,
 from .fields import (compute_orographic_updraft,
                      compute_slope_aspect_degrees,
                      get_above_threshold_speed)
-from .potential.direct import solve_potential_direct
+from .potential.boundary import boundary_masks
+from .potential.direct import fallback_cost_estimate, solve_potential_direct
 from .utils import makedir_if_not_exists
 
 
@@ -60,11 +62,21 @@ def _check_slice(cfg: Config) -> None:
         raise NotImplementedError(
             f'movement_model={cfg.movement_model!r}: only fluidflow is '
             f"ported; the directed random walk 'drw' waits ({todo})")
-    if str(cfg.potential_solver).lower() != 'direct':
+    solver = (cfg.potential_solver or 'auto').lower()
+    if solver in ('mg', 'multigrid'):
         raise NotImplementedError(
-            f'potential_solver={cfg.potential_solver!r}: the port runs the '
-            "host float64 'direct' solver only; the refined device solver "
-            f'is the next item ({todo}: refined device solver)')
+            f'potential_solver={cfg.potential_solver!r}: the legacy '
+            "row-normalized multigrid is not ported; use 'auto' (the "
+            f"refined device solver) or 'direct' ({todo}: not ported, on "
+            'purpose)')
+    if solver not in ('auto', 'refined', 'direct', 'dense'):
+        raise ValueError(
+            f'potential_solver={cfg.potential_solver!r}: expected auto, '
+            'refined, direct or dense')
+    if int(cfg.potential_batch) > 1:
+        raise NotImplementedError(
+            f'potential_batch={cfg.potential_batch}: the batched multi-case '
+            f'solve is not ported ({todo}: not ported, on purpose)')
     if int(cfg.mesh_devices) > 1:
         raise NotImplementedError(
             f'mesh_devices={cfg.mesh_devices}: the port runs on one device; '
@@ -212,8 +224,15 @@ class Simulator(Config):
 
     def get_directional_potential(self, updraft: torch.Tensor, case_id,
                                   real_id) -> np.ndarray:
-        """Cached directional-potential solve (ssrs/simulator.py:259-288):
-        the host float64 direct solve of the float32 conductivity."""
+        """Cached directional-potential solve
+        (ssrs/simulator.py:259-288)."""
+        return self._directional_potential(updraft, case_id, real_id)[0]
+
+    def _directional_potential(self, updraft, case_id, real_id):
+        """(host potential, device potential or None, info): ``info`` is
+        the ``potential`` record's solver (``'refined'``, ``'direct'`` or
+        ``'cache'``), ``rrel``, ``fallback``, refinement ``passes`` and
+        ``vcycles``."""
         fname = self._get_potential_fname(case_id, real_id,
                                           self.mode_data_dir)
         id_str = self._get_id_string(case_id, real_id)
@@ -224,16 +243,87 @@ class Simulator(Config):
             if (self.sim_seed < 0) and (real_id != 0):
                 raise FileNotFoundError
             print(f'{id_str}: Found saved potential')
+            dev, info = None, _solve_info('cache')
         except FileNotFoundError:
             start_time = time.time()
-            potential = solve_potential_direct(
-                updraft.cpu().numpy(), self.track_direction)
+            handle = self._begin_potential_solve(updraft)
+            potential, dev = self._finish_potential_solve_pair(handle)
+            info = handle[-1]
             print(f'{id_str}: Computing potential..'
                   f'took {elapsed_str(start_time)}', flush=True)
             np.save(f'{fname}.npy', potential.astype(np.float32))
         if np.isnan(potential).any():
             print('NANs found in potential!')
-        return potential
+        return potential, dev, info
+
+    def _solve_potential(self, conductivity) -> np.ndarray:
+        return self._finish_potential_solve_pair(
+            self._begin_potential_solve(conductivity))[0]
+
+    def _begin_potential_solve(self, conductivity):
+        """Run one potential solve of a conductivity (tensor or numpy);
+        returns the handle :meth:`_finish_potential_solve_pair` reads,
+        ``(kind, payload, info)``. ``'auto'`` is the refined solver on the
+        run's device (the JAX package's default); ``'direct'`` and
+        ``'dense'`` the host float64 solve."""
+        solver = (self.potential_solver or 'auto').lower()
+        cond = torch.as_tensor(conductivity, dtype=torch.float32,
+                               device=self.device)
+        if solver in ('direct', 'dense'):
+            return ('done', solve_potential_direct(cond.cpu().numpy(),
+                                                   self.track_direction),
+                    _solve_info('direct'))
+        from .potential import solve_potential_refined
+        bmask, bvals = boundary_masks(self.track_direction,
+                                      tuple(self.gridsize))
+        maxiter = self.potential_maxiter if self.potential_maxiter > 0 \
+            else 60
+        stats = {}
+        pot, resid = solve_potential_refined(
+            cond, bmask, bvals, tol=float(self.potential_tol),
+            maxcycles=maxiter, stats=stats)
+        return ('refined', (cond, pot, resid),
+                _solve_info('refined', rrel=float(resid), **stats))
+
+    def _finish_potential_solve_pair(self, handle):
+        """(host potential, device potential or None) of a
+        :meth:`_begin_potential_solve` handle, through the residual net.
+
+        The net is the JAX package's numerical policy
+        (ssrs_tpu/simulator.py:563-612): a refined solve whose scaled
+        relative residual exceeds 5e-3 is discarded for the float64
+        direct solve, unless the grid is above
+        ``Config.potential_fallback_max_unknowns`` (<= 0 lifts the cap),
+        where it raises instead of buying an hours-long host solve. The
+        handle's info records a fallback."""
+        kind, payload, info = handle
+        if kind == 'done':
+            return payload, None
+        conductivity, pot, resid = payload
+        if float(resid) > 5e-3:
+            unknowns = int(np.prod(self.gridsize))
+            est_s, est_gb = fallback_cost_estimate(unknowns)
+            cap = int(self.potential_fallback_max_unknowns)
+            if cap > 0 and unknowns > cap:
+                raise RuntimeError(
+                    f'device potential solve stalled (rrel '
+                    f'{float(resid):.2e}) on a {self.gridsize[0]}x'
+                    f'{self.gridsize[1]} grid, and the f64 direct '
+                    f'fallback at {unknowns} unknowns is estimated at '
+                    f'~{est_s / 60:.0f} min / ~{est_gb:.0f} GB, and fails '
+                    'outright near 4096^2 (SuperLU int32 fill-in limit). '
+                    'Raise Config.potential_fallback_max_unknowns to '
+                    "attempt it anyway, or set potential_solver='direct' "
+                    'to run it deliberately.')
+            print(f'device potential solve stalled (rrel '
+                  f'{float(resid):.2e}); falling back to the f64 '
+                  f'direct solver (estimated ~{est_s:.0f} s / '
+                  f'~{est_gb:.1f} GB at {unknowns} unknowns)..',
+                  flush=True)
+            info['fallback'] = True
+            return solve_potential_direct(conductivity.cpu().numpy(),
+                                          self.track_direction), None
+        return pot.cpu().numpy(), pot
 
     def _get_id_string(self, case_id: str, real_id=None):
         """Artifact id (ssrs/simulator.py:290-298)."""
@@ -294,9 +384,11 @@ class Simulator(Config):
             real_id = 0
             with self.timer.phase('potential'):
                 updraft = self.load_updrafts(case_id)[real_id]
-                potential = self.get_directional_potential(
+                potential, pot_dev, info = self._directional_potential(
                     updraft, case_id, real_id)
-            potential = torch.from_numpy(potential).to(self.device)
+            self.timer.records[-1].update(info)
+            potential = pot_dev if pot_dev is not None else \
+                torch.from_numpy(potential).to(self.device)
             id_str = self._get_id_string(case_id, real_id)
             print(f'{id_str}: Simulating {self.track_count} tracks..',
                   end='', flush=True)
@@ -399,6 +491,13 @@ class Simulator(Config):
     def _get_uniform_id(self):
         return (f's{int(self.uniform_windspeed)}'
                 f'd{int(self.uniform_winddirn)}')
+
+
+def _solve_info(solver: str, rrel=None, passes: int = 0,
+                vcycles: int = 0) -> dict:
+    """The fields a solve adds to the ``potential`` phase record."""
+    return dict(solver=solver, rrel=rrel, fallback=False, passes=passes,
+                vcycles=vcycles)
 
 
 def _jsonable(v) -> bool:

@@ -19,6 +19,7 @@ from ssrs_tpu_torch.agents import fused_step as fs
 from ssrs_tpu_torch.agents import presence_hist as ph
 from ssrs_tpu_torch.agents.moves import directional_probs, restriction_table
 from ssrs_tpu_torch.agents.presence import smooth_presence
+from ssrs_tpu_torch.potential.fields import conductivity_hard, speckle
 
 pytestmark = pytest.mark.gpu
 
@@ -211,3 +212,65 @@ def test_recorded_run_on_card_counts_equal_recount(cuda, tmp_path):
     assert ph.launch_count('presence_histogram_batch') == 1
     assert recount.dtype == np.int16
     np.testing.assert_array_equal(recount.astype(np.int32), counts)
+
+
+@pytest.mark.parametrize('field,dirn,bound', [
+    ('hard', 0., 1e-2), ('hard', 45., 1e-2), ('hard', 90., 1e-2),
+    ('fuzz', 45., 1.0), ('fuzz', 135., 1.0), ('hard460', 0., 1.0)])
+def test_refined_solve_on_card_matches_cpu(cuda, field, dirn, bound):
+    """The refined solver on the card and through the same code on the
+    CPU: both within the JAX package's bound of the direct solve
+    (tests/test_potential.py), so within twice that of each other."""
+    from ssrs_tpu_torch.potential import (boundary_masks,
+                                          solve_potential_direct,
+                                          solve_potential_refined)
+    cond = {'hard': lambda: conductivity_hard((24, 30), 1),
+            'fuzz': lambda: speckle(
+                np.random.default_rng(int(dirn)), (64, 64), 0.5),
+            'hard460': lambda: conductivity_hard((460, 460), 1)}[field]()
+    bmask, bvals = boundary_masks(dirn, cond.shape)
+    want = solve_potential_direct(cond, dirn).astype(np.float64)
+    pots = []
+    for dev in (cuda, torch.device('cpu')):
+        pot, rrel = solve_potential_refined(torch.from_numpy(cond).to(dev),
+                                            bmask, bvals)
+        assert pot.device.type == dev.type and pot.dtype == torch.float32
+        pot = pot.cpu().numpy().astype(np.float64)
+        assert np.abs(pot - want).max() < bound and rrel < 1e-5
+        pots.append(pot)
+    assert np.abs(pots[0] - pots[1]).max() < 2 * bound
+
+
+def test_refined_solve_on_card_is_bitwise_repeatable(cuda):
+    from ssrs_tpu_torch.potential import (boundary_masks,
+                                          solve_potential_refined)
+    cond = torch.from_numpy(speckle(
+        np.random.default_rng(3), (200, 240), 0.55)).to(cuda)
+    bmask, bvals = boundary_masks(0., tuple(cond.shape))
+    a, ra = solve_potential_refined(cond, bmask, bvals)
+    b, rb = solve_potential_refined(cond.clone(), bmask, bvals)
+    assert torch.equal(a, b) and ra == rb
+
+
+def test_vcycle_on_card_reads_nothing_back(cuda):
+    """A V-cycle enqueues its work without a device-to-host sync: the
+    only syncs of a solve are the GCR exit tests and the refinement
+    passes' residual reads."""
+    from ssrs_tpu_torch.potential import boundary_masks
+    from ssrs_tpu_torch.potential import lap
+    cond = speckle(np.random.default_rng(5), (120, 150), 0.55)
+    bmask, _ = boundary_masks(0., cond.shape)
+    labels, k = lap.island_labels(cond, bmask)
+    assert k > 0
+    planes = lap.symmetrize_planes(
+        lap.weight_planes(torch.from_numpy(cond).to(cuda)))
+    levels = lap.build_lap_levels(planes, torch.from_numpy(bmask).to(cuda),
+                                  labels, k + 1)
+    rhs = torch.rand(cond.shape, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out = lap.vcycle(levels, rhs, torch.zeros_like(rhs))
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    assert torch.isfinite(out).all()

@@ -171,14 +171,126 @@ def test_default_device_needs_a_card(tmp_path):
 @pytest.mark.parametrize('override', [
     dict(sim_mode='seasonal'), dict(sim_mode='snapshot'),
     dict(thermals_realization_count=1), dict(movement_model='drw'),
-    dict(potential_solver='auto'), dict(track_presence_impl='scatter'),
+    dict(potential_solver='mg'), dict(track_presence_impl='scatter'),
     dict(mesh_devices=2), dict(track_step_impl='xla'),
+    dict(potential_batch=2),
 ])
 def test_out_of_slice_configs_raise(tmp_path, override):
     cfg = ssrs_tpu_torch.Config(out_dir=str(tmp_path),
                                 **{**CONFIG, **override})
     with pytest.raises(NotImplementedError, match='ROADMAP|engine'):
         ssrs_tpu_torch.Simulator(cfg, device='cpu')
+
+
+def test_refined_run_matches_jax_auto_and_direct(sims, tmp_path):
+    """The default potential_solver='auto' runs the port's refined solver
+    on the run's device: a whole run on the CPU, its potential within 1.0
+    (of 1000) of the JAX package's 'auto' potential and of the direct
+    solve (JAX's 'auto' reads 0.108 from the direct solve here)."""
+    from ssrs_tpu.potential import solve_potential_refined as jrefined
+    jax_sim, port, _, _ = sims
+    sim = ssrs_tpu_torch.Simulator(ssrs_tpu_torch.Config(
+        out_dir=str(tmp_path), **{**CONFIG, 'potential_solver': 'auto'}),
+        device='cpu')
+    sim.simulate_tracks()
+    rec = {r['phase']: r for r in sim.timer.records}['potential']
+    assert rec['solver'] == 'refined' and rec['fallback'] is False
+    assert rec['rrel'] < 1e-5 and 1 <= rec['passes'] <= rec['vcycles']
+    pot = _load(sim, f'{ID}_potential.npy')
+    bmask, bvals = ssrs_tpu_torch.potential.boundary_masks(0., pot.shape)
+    want_jax, _ = jrefined(np.asarray(jax_sim.load_updrafts(CASE)[0]),
+                           bmask, bvals)
+    for want in (np.asarray(want_jax), _load(port, f'{ID}_potential.npy')):
+        assert np.abs(pot.astype(np.float64) - want).max() < 1.0
+    # a second run reads the cache
+    again = ssrs_tpu_torch.Simulator(ssrs_tpu_torch.Config(
+        out_dir=str(tmp_path), **{**CONFIG, 'potential_solver': 'auto'}),
+        device='cpu')
+    again.simulate_tracks()
+    rec = {r['phase']: r for r in again.timer.records}['potential']
+    assert rec['solver'] == 'cache' and rec['rrel'] is None
+
+
+def _stalled_solver(garbage):
+    return lambda *a, **k: (torch.from_numpy(garbage), 0.5)
+
+
+def test_potential_fallback(sims, monkeypatch, capsys):
+    """The residual net: a refined solve reporting rrel above 5e-3 is
+    discarded for the float64 direct solve (forced with a stub that
+    returns garbage and a stalled residual)."""
+    from ssrs_tpu_torch.potential.direct import solve_potential_direct
+    port = sims[1]
+    monkeypatch.setattr(port, 'potential_solver', 'auto')
+    rng = np.random.default_rng(0)
+    cond = rng.random(port.gridsize).astype(np.float32)
+    cond[cond < 0.5] = 0.0
+    garbage = np.full(port.gridsize, 1e6, np.float32)
+    monkeypatch.setattr(ssrs_tpu_torch.potential, 'solve_potential_refined',
+                        _stalled_solver(garbage))
+    handle = port._begin_potential_solve(cond)
+    got, dev = port._finish_potential_solve_pair(handle)
+    out = capsys.readouterr().out
+    assert 'falling back to the f64 direct solver' in out
+    assert dev is None and handle[-1]['fallback'] is True
+    want = solve_potential_direct(cond, port.track_direction)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_potential_tol_threads_to_refined_solver(sims, monkeypatch):
+    """Config.potential_tol and potential_maxiter reach the refined
+    solver."""
+    port = sims[1]
+    seen = {}
+
+    def fake_solve(cond, bmask, bvals, tol=1e-7, maxcycles=60, **kw):
+        seen.update(tol=tol, maxcycles=maxcycles, device=cond.device)
+        return torch.zeros(port.gridsize), 1e-9
+
+    monkeypatch.setattr(ssrs_tpu_torch.potential, 'solve_potential_refined',
+                        fake_solve)
+    monkeypatch.setattr(port, 'potential_solver', 'refined')
+    monkeypatch.setattr(port, 'potential_tol', 3e-4)
+    cond = np.random.default_rng(0).random(port.gridsize).astype(np.float32)
+    port._solve_potential(cond)
+    assert seen == dict(tol=3e-4, maxcycles=60, device=torch.device('cpu'))
+    monkeypatch.setattr(port, 'potential_maxiter', 17)
+    port._solve_potential(cond)
+    assert seen['maxcycles'] == 17
+
+
+def test_potential_fallback_size_cap(sims, monkeypatch):
+    """Above Config.potential_fallback_max_unknowns a stall raises with
+    the cost estimate; <= 0 lifts the cap."""
+    port = sims[1]
+    monkeypatch.setattr(port, 'potential_solver', 'auto')
+    rng = np.random.default_rng(0)
+    cond = rng.random(port.gridsize).astype(np.float32)
+    garbage = np.full(port.gridsize, 1e6, np.float32)
+    monkeypatch.setattr(ssrs_tpu_torch.potential, 'solve_potential_refined',
+                        _stalled_solver(garbage))
+    monkeypatch.setattr(port, 'potential_fallback_max_unknowns', 100)
+    with pytest.raises(RuntimeError, match='estimated'):
+        port._solve_potential(cond)
+    monkeypatch.setattr(port, 'potential_fallback_max_unknowns', 0)
+    got = port._solve_potential(cond)
+    assert np.isfinite(got).all()
+
+
+def test_fallback_cost_estimate_monotone():
+    """The cost model reproduces its anchors, grows superlinearly, and
+    equals the JAX package's."""
+    from ssrs_tpu.potential.direct import fallback_cost_estimate as jcost
+    from ssrs_tpu_torch.potential import fallback_cost_estimate
+    s512, g512 = fallback_cost_estimate(512 * 512)
+    assert abs(s512 - 4.9) < 1e-6 and abs(g512 - 0.94) < 1e-6
+    s2048, g2048 = fallback_cost_estimate(2048 * 2048)
+    assert 250 < s2048 < 500
+    assert 8 < g2048 < 25
+    s8192, _ = fallback_cost_estimate(8192 * 8192)
+    assert s8192 > 3600
+    for n in (1, 512 * 512, 8192 * 8192):
+        assert fallback_cost_estimate(n) == jcost(n)
 
 
 def test_config_json_roundtrip_between_packages(tmp_path):
