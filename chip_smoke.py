@@ -6,10 +6,14 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (the
-fused agent step, and the presence histograms: weighted for the flush,
-counting for the recount of recorded tracks), holds each against its
-plain PyTorch version on the card at the shapes its path gives it, and
-drives two runs of the README's region (500x600 cells at 100 m): the
+chunk kernel, which runs a chunk of agent steps per launch for the
+compacting and the recording drivers; the fused agent step, which runs
+one step per launch for ``simulate_presence``; and the presence
+histograms: weighted for the flush, counting for the recount of recorded
+tracks), checks that nvcc kept the chunk kernel's memory ring out of
+local memory, holds each kernel against its plain PyTorch version on the
+card at the shapes its path gives it, and drives two runs of the
+README's region (500x600 cells at 100 m): the
 uniform-mode run of 100,000 tracks with the default potential solver
 (the refined solver, on the card), and the recorded-track run of 10,000
 tracks (the default track_pkl_budget) on the cached potential, which
@@ -17,12 +21,16 @@ writes ``_tracks.pkl`` and must agree exactly with its own recount. It
 holds the main run's potential to the invariants of the reference's
 system, solves it twice more on the card (bitwise equal, one solve
 profiled), beside the host direct solve, and solves the 460x460 hard
-field of tests/test_potential.py against the direct solve. It checks
-small runs on the card, with and without recorded tracks, against the
-same runs through the plain versions on the CPU. Every phase prints one
-line; any failure exits non-zero. The last three lines are a JSON object
-with the solver's numbers, one with the kernels' numbers and the JSON
-status line ``{"ok": true, "device": {...}}``.
+field of tests/test_potential.py against the direct solve. On the main
+run's own table and starts it holds one 512-step chunk launch against
+512 per-step launches (exact, both timed in turns), times the chunk's
+uniform draw, profiles a warm track phase and drives the per-step
+driver. It checks small runs on the card, with and without recorded
+tracks, against the same runs through the plain versions on the CPU.
+Every phase prints one line; any failure exits non-zero. The last three
+lines are a JSON object with the solver's and the track engine's
+numbers, one with the kernels' numbers and the JSON status line
+``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -30,7 +38,9 @@ non-zero and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import pickle
 import subprocess
@@ -84,6 +94,22 @@ HARD_ERR_MAX = 0.05
 L1_BOUND = 0.08
 # at nu != 1 kernel (expf/logf) and plain (torch exp/log) may round apart
 NU2_MIN_EQUAL = 0.999
+# the chunk kernel's checks: windows of CHUNK_T steps from step CHUNK_S0,
+# before the main run's burn-in (50 steps) ends; the k = 3 windows reach
+# the cap CHUNK_CAP
+CHUNK_T = 512
+CHUNK_S0 = 20
+CHUNK_CAP = CHUNK_S0 + 400
+# the main-field chunk is also timed in launches of CHUNK_SEG steps: the
+# first covers the burn-in, where the starts crowd ~5,000 cells
+CHUNK_SEG = 64
+# the drivers' chunk length (agents/simulate.py)
+DRIVER_CHUNK = 512
+# the card's published peaks (on-chip-measurement guide: NVIDIA's H100 SXM
+# data sheet, at 700 W): device-memory bytes/s and float32 operations/s
+# outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
 
 
 def say(msg: str) -> None:
@@ -115,14 +141,80 @@ def phase_build():
     t0 = time.perf_counter()
     _build.load_library()
     secs = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.build_info['log'].splitlines()
-            if 'registers' in ln]
+    log = _build.build_info['log']
+    regs = [ln.strip() for ln in log.splitlines() if 'registers' in ln]
     say(f'build: {secs:.2f} s (nvcc {_build.build_info["seconds"]:.2f} s) '
         f'{_build.build_info["path"]}; ptxas: {" | ".join(regs)}')
+    frames = _ptxas_frames(log, 'fused_chunk_kernel')
+    if len(frames) != 2 or any(v != (0, 0, 0) for v in frames.values()):
+        fail(f'chunk kernel: ptxas reports stack frame / spills {frames}')
+    say('build: chunk kernel (f32, bf16): 0 bytes stack frame, 0 bytes '
+        'spill stores, 0 bytes spill loads')
     t0 = time.perf_counter()
     if not native.native_available():
         fail('the C++ track builder does not build (g++)')
     say(f'build: C++ track builder {time.perf_counter() - t0:.2f} s')
+
+
+def _ptxas_frames(log, name):
+    """{mangled kernel name: (stack frame, spill store, spill load bytes)}
+    from nvcc's ``-Xptxas -v`` report, for the kernels named ``name``."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if 'Function properties for' in line:
+            current = line.split('Function properties for')[1].strip()
+        elif current and 'bytes stack frame' in line:
+            nums = [int(w) for w in line.replace(',', ' ').split()
+                    if w.isdigit()]
+            if name in current:
+                out[current] = tuple(nums[:3])
+            current = None
+    return out
+
+
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``nbytes`` through device memory and to do ``flops`` float32
+    operations, at the published peaks."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _move_flops(k):
+    """Float multiplies and adds of one live agent-step at nu = 1: the
+    memory mask and its product with the weights (9 (k + 1) when k > 0),
+    the total and the running sum (18) and the threshold (1)."""
+    return 19 + (9 * (k + 1) if k > 0 else 0)
+
+
+def _step_bound(torch, table, a, k):
+    """Bound of one fused step on these inputs: each agent's operands
+    read once (pr, pc, r, c, the flags, the uniform, the memory) and its
+    results written once; each distinct table row a live agent gathers
+    read once; each distinct cell a pending agent counts read and written
+    once."""
+    n, k_rows = a['r'].shape[0], max(k, 1)
+    live = a['alive']
+    rows = torch.unique((a['pr'].long() * NCOL + a['pc'].long())[live])
+    sel = a['palive'] & (a['r'] >= 0) & (a['r'] < NROW) & (a['c'] >= 0) \
+        & (a['c'] < NCOL)
+    cells = torch.unique((a['r'].long() * NCOL + a['c'].long())[sel])
+    nbytes = n * (16 + 2 + 4 + 4 * k_rows) + n * (8 + 4 * k_rows) \
+        + rows.numel() * 9 * table.element_size() + cells.numel() * 8
+    return _bound(nbytes, int(live.sum()) * _move_flops(k))
+
+
+def _chunk_bound(n, k, row_bytes, live, cells, emitted_rows=0):
+    """Bound of one chunk launch: the state (r, c, memory, two flags) read
+    and written once; one uniform per live agent-step; each cell the
+    chunk counted read and written once, and its table row read once (the
+    rows gathered are the cells visited, burn-in pushes aside); the
+    emission rows, if any, written once."""
+    state = n * (4 + 4 + 4 * max(k, 1) + 1 + 1) * 2
+    nbytes = state + live * 4 + cells * (row_bytes + 8) \
+        + emitted_rows * n * 5
+    return _bound(nbytes, live * _move_flops(k))
 
 
 def _step_inputs(torch, rng, dtype, dev):
@@ -235,11 +327,116 @@ def phase_kernel(torch):
                 torch, lambda: call(fused_step_plain, pres, 1.0)),
         }
         tm = timing[dname]
+        tm['bound_ms'], tm['bound_by'] = _step_bound(torch, table, a, 1)
         say(f'timing {dname} N={N_AGENTS}: kernel {tm["ms"] * 1e3:.1f} us '
             f'device / {tm["host_ms"] * 1e3:.1f} us wall per step; plain '
             f'{tm["plain_ms"] * 1e3:.1f} us device / '
-            f'{tm["plain_host_ms"] * 1e3:.1f} us wall per step')
+            f'{tm["plain_host_ms"] * 1e3:.1f} us wall per step; bound '
+            f'{tm["bound_ms"] * 1e3:.2f} us ({tm["bound_by"]})')
     return max_err, timing
+
+
+def _chunk_state(torch, rng, k, dev):
+    """A population over the whole grid (border cells included), 10% dead
+    and 10% with nothing pending, with random memory."""
+    n = N_AGENTS
+    ints = dict(r=rng.integers(0, NROW, n), c=rng.integers(0, NCOL, n),
+                mem=rng.integers(0, 9, (max(k, 1), n)))
+    st = {name: torch.from_numpy(v.astype(np.int32)).to(dev)
+          for name, v in ints.items()}
+    st['alive'] = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    st['palive'] = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    return st
+
+
+def _emission(torch, t_len, fill, dev):
+    """Emission rows filled with ``fill``, so that an unwritten row shows."""
+    return (torch.full((t_len, N_AGENTS, 2), fill, dtype=torch.int16,
+                       device=dev),
+            torch.full((t_len, N_AGENTS), fill % 2 == 1, dtype=torch.bool,
+                       device=dev))
+
+
+def phase_chunk(torch):
+    """The chunk kernel against its plain version on the card, exactly:
+    N=100k on 500x600, both table dtypes, nu in {0, 1}, k in {0, 1, 3},
+    CHUNK_T steps from before the burn-in's end (the k = 3 windows past
+    the cap, and without emission rows); then nu = 2 at T = 1."""
+    from ssrs_tpu_torch.agents.fused_chunk import (fused_chunk,
+                                                   fused_chunk_plain)
+    from ssrs_tpu_torch.agents.moves import (directional_probs,
+                                             restriction_table)
+    dev = torch.device('cuda')
+    restr = torch.from_numpy(restriction_table()).to(dev)
+    dirp = torch.from_numpy(directional_probs(0.)).to(dev)
+    rng = np.random.default_rng(2029)
+    gen = torch.Generator(device=dev).manual_seed(2029)
+    burnin = min(NROW, NCOL) // 10
+    max_err = 0
+
+    def run(fn, table, st, u, pres, nu, k, nsteps, emit):
+        fn(table, restr, dirp, st['r'], st['c'], st['mem'], st['alive'],
+           st['palive'], u, pres, nu=nu, memory_k=k, s0=CHUNK_S0,
+           burnin=burnin, nsteps=nsteps, emit=emit)
+
+    for dname, dtype in (('float32', torch.float32),
+                         ('bfloat16', torch.bfloat16)):
+        table, _ = _step_inputs(torch, rng, dtype, dev)
+        for k in (0, 1, 3):
+            for nu in (1.0, 0.0):
+                st_k = _chunk_state(torch, rng, k, dev)
+                st_p = {name: v.clone() for name, v in st_k.items()}
+                u = torch.rand((CHUNK_T, N_AGENTS), generator=gen,
+                               device=dev)
+                nsteps = CHUNK_CAP if k == 3 else 10_000
+                emit_k = emit_p = None
+                if k != 3:
+                    emit_k = _emission(torch, CHUNK_T, -7, dev)
+                    emit_p = _emission(torch, CHUNK_T, 11, dev)
+                pres_k = torch.zeros(NROW, NCOL, dtype=torch.int32,
+                                     device=dev)
+                pres_p = torch.zeros_like(pres_k)
+                run(fused_chunk, table, st_k, u, pres_k, nu, k, nsteps,
+                    emit_k)
+                run(fused_chunk_plain, table, st_p, u, pres_p, nu, k,
+                    nsteps, emit_p)
+                torch.cuda.synchronize()
+                pairs = [(name, st_k[name], st_p[name]) for name in st_k]
+                pairs.append(('presence', pres_k, pres_p))
+                if emit_k is not None:
+                    pairs += [('emitted positions', emit_k[0], emit_p[0]),
+                              ('emitted flags', emit_k[1], emit_p[1])]
+                for name, x, y in pairs:
+                    err = int((x.long() - y.long()).abs().max())
+                    max_err = max(max_err, err)
+                    if err:
+                        fail(f'chunk {dname} k={k} nu={nu}: {name} differs '
+                             f'from plain (max abs err {err})')
+                left = int(st_k['alive'].sum())
+                if k == 3 and left:
+                    fail(f'chunk {dname} k={k}: {left} agents alive past '
+                         'the cap')
+                say(f'chunk kernel {dname} k={k} nu={nu}: exact match with '
+                    f'plain (N={N_AGENTS}, {NROW}x{NCOL}, T={CHUNK_T} from '
+                    f'step {CHUNK_S0}, burn-in {burnin}, cap {nsteps}; '
+                    f'{"with" if emit_k else "no"} emission rows; '
+                    f'{left} alive after)')
+        st_k = _chunk_state(torch, rng, 1, dev)
+        st_p = {name: v.clone() for name, v in st_k.items()}
+        u = torch.rand((1, N_AGENTS), generator=gen, device=dev)
+        pres_k = torch.zeros(NROW, NCOL, dtype=torch.int32, device=dev)
+        pres_p = torch.zeros_like(pres_k)
+        run(fused_chunk, table, st_k, u, pres_k, 2.0, 1, 10_000, None)
+        run(fused_chunk_plain, table, st_p, u, pres_p, 2.0, 1, 10_000, None)
+        torch.cuda.synchronize()
+        same = (st_k['r'] == st_p['r']) & (st_k['c'] == st_p['c'])
+        frac = float(same.to(torch.float64).mean())
+        if frac < NU2_MIN_EQUAL or not torch.equal(pres_k, pres_p):
+            fail(f'chunk {dname} nu=2: {frac:.6f} of moves equal, or the '
+                 'presence differs')
+        say(f'chunk kernel {dname} nu=2 T=1: {frac:.6f} of moves equal '
+            f'(>= {NU2_MIN_EQUAL}), presence exact')
+    return max_err
 
 
 def _scatter_indices(rng, n):
@@ -269,47 +466,83 @@ def phase_hist(torch):
     r[rng.random(HIST_C_POINTS) < 0.3] = -1
     rc = torch.from_numpy(r.astype(np.int16)).to(dev)
     cc = torch.from_numpy(c.astype(np.int16)).to(dev)
+    # the library yardsticks: one index_put_ with accumulation into a new
+    # int32 map, on the in-range points' long indices and int32 values,
+    # made here and not timed (the flush's weights are 0/1 integers)
+    r_in, c_in, sel = _in_range_long(torch, rb, cb)
+    lib_b = (r_in, c_in, wb.to(torch.int32)[sel])
+    r_in, c_in, _ = _in_range_long(torch, rc, cc)
+    lib_c = (r_in, c_in, torch.ones_like(r_in, dtype=torch.int32))
     cases = {
         'presence_histogram': (
             lambda: ph.presence_histogram(rb, cb, wb, NROW, NCOL),
             lambda: ph.presence_histogram_plain(rb, cb, wb, NROW, NCOL),
-            f'N={HIST_B_POINTS} 0/1 weights'),
+            lambda: _index_put_map(torch, *lib_b),
+            f'N={HIST_B_POINTS} 0/1 weights',
+            # rows, cols, weights read once; the map written once
+            HIST_B_POINTS * 12 + NROW * NCOL * 4),
         'presence_histogram_batch': (
             lambda: ph.presence_histogram_batch(rc, cc, NROW, NCOL),
             lambda: ph.presence_histogram_batch_plain(rc, cc, NROW, NCOL),
-            f'M={HIST_C_POINTS} int16, 30% dead'),
+            lambda: _index_put_map(torch, *lib_c),
+            f'M={HIST_C_POINTS} int16, 30% dead',
+            HIST_C_POINTS * 4 + NROW * NCOL * 4),
     }
     out = {}
-    for name, (kernel, plain, what) in cases.items():
-        got, want = kernel(), plain()
+    for name, (kernel, plain, library, what, nbytes) in cases.items():
+        got, want, lib = kernel(), plain(), library()
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
-        if err or int(want.sum()) <= 0:
-            fail(f'{name}: differs from plain (max abs err {err})')
+        if err or int(want.sum()) <= 0 or not torch.equal(lib, want):
+            fail(f'{name}: differs from plain (max abs err {err}), or the '
+                 'library call does')
         tm = {'max_abs_err': err,
               'ms': _device_ms(torch, kernel),
               'plain_ms': _device_ms(torch, plain),
+              'library_ms': _device_ms(torch, library),
               'host_ms': _host_ms(torch, kernel),
               'plain_host_ms': _host_ms(torch, plain)}
+        tm['bound_ms'], tm['bound_by'] = _bound(nbytes, 0)
         out[name] = tm
         say(f'{name} ({what}, {NROW}x{NCOL}): exact match with plain; '
             f'kernel {tm["ms"] * 1e3:.1f} us device / '
             f'{tm["host_ms"] * 1e3:.1f} us wall; plain '
             f'{tm["plain_ms"] * 1e3:.1f} us device / '
-            f'{tm["plain_host_ms"] * 1e3:.1f} us wall')
+            f'{tm["plain_host_ms"] * 1e3:.1f} us wall; library index_put_ '
+            f'{tm["library_ms"] * 1e3:.1f} us device; bound '
+            f'{tm["bound_ms"] * 1e3:.2f} us ({tm["bound_by"]})')
     return out
 
 
+def _in_range_long(torch, rows, cols):
+    """(rows, cols) of the in-grid points as int64, and the in-grid mask."""
+    r, c = rows.long(), cols.long()
+    sel = (r >= 0) & (r < NROW) & (c >= 0) & (c < NCOL)
+    return r[sel], c[sel], sel
+
+
+def _index_put_map(torch, r, c, values):
+    """The library yardstick of a presence histogram: one accumulating
+    index_put_ into a new int32 map."""
+    out = torch.zeros((NROW, NCOL), dtype=torch.int32, device=r.device)
+    return out.index_put_((r, c), values, accumulate=True)
+
+
 def _reset_counts():
-    from ssrs_tpu_torch.agents import fused_step, presence_hist, simulate
+    from ssrs_tpu_torch.agents import (fused_chunk, fused_step,
+                                       presence_hist, simulate)
     fused_step.reset_launch_count()
+    fused_chunk.reset_launch_count()
     presence_hist.reset_launch_count()
     simulate.reset_flush_count()
 
 
 def _read_counts():
-    from ssrs_tpu_torch.agents import fused_step, presence_hist, simulate
+    from ssrs_tpu_torch.agents import (fused_chunk, fused_step,
+                                       presence_hist, simulate)
     return {'fused_step': fused_step.launch_count(),
+            'fused_chunk': fused_chunk.launch_count(),
+            'fused_chunk_steps': fused_chunk.steps_count(),
             'presence_histogram':
                 presence_hist.launch_count('presence_histogram'),
             'presence_histogram_batch':
@@ -330,9 +563,7 @@ def phase_main(torch, device_name, out):
     sim.compute_presence_map()
     records = {r['phase']: r for r in sim.timer.records}
     steps = records['tracks']['steps']
-    if launched['fused_step'] != steps or steps <= 0:
-        fail(f'main path: {launched["fused_step"]} kernel launches for '
-             f'{steps} steps')
+    _check_chunk_launches('main path', launched, steps)
     if launched['presence_histogram'] != launched['flushes'] or \
             launched['flushes'] < 1:
         fail(f'main path: {launched["presence_histogram"]} histogram '
@@ -356,12 +587,27 @@ def phase_main(torch, device_name, out):
         f'{k} {records[k]["seconds"]:.3f}' for k in
         ('terrain', 'updrafts', 'potential', 'tracks',
          'simulate_tracks', 'presence_map')) + f'; ctor {ctor:.3f}')
-    say(f'main path: {steps} steps, {launched["fused_step"]} kernel '
-        f'launches, {launched["flushes"]} flushes through '
+    say(f'main path: {steps} steps, {launched["fused_chunk"]} chunk kernel '
+        f'launches covering {launched["fused_chunk_steps"]} steps, '
+        f'{launched["fused_step"]} per-step launches, '
+        f'{launched["flushes"]} flushes through '
         f'{launched["presence_histogram"]} histogram launches, {useful} '
         f'agent-steps in {tracks_s:.3f} s = {useful / tracks_s:.4g} '
         f'agent-steps/s on {device_name}')
     return launched, sim
+
+
+def _check_chunk_launches(label, launched, steps):
+    """The drivers' launches: one chunk kernel launch a chunk (each of the
+    runs' chunks, at most 100,000 agents x DRIVER_CHUNK steps, is one
+    uniform block), covering every step, and no per-step launch."""
+    chunks = math.ceil(steps / DRIVER_CHUNK)
+    if steps <= 0 or launched['fused_chunk'] != chunks or \
+            launched['fused_chunk_steps'] != steps or launched['fused_step']:
+        fail(f'{label}: {launched["fused_chunk"]} chunk launches covering '
+             f'{launched["fused_chunk_steps"]} steps and '
+             f'{launched["fused_step"]} per-step launches, for {steps} '
+             f'steps in {chunks} chunks')
 
 
 def _check_tracks(tracks, starts, nrow, ncol, burnin, cap):
@@ -420,9 +666,7 @@ def phase_recorded(torch, device_name, out):
     records = {r['phase']: r for r in sim.timer.records}
     rec = records['tracks']
     steps = rec['steps']
-    if launched['fused_step'] != steps or steps <= 0:
-        fail(f'recorded run: {launched["fused_step"]} step launches for '
-             f'{steps} steps')
+    _check_chunk_launches('recorded run', launched, steps)
     if launched['presence_histogram'] != launched['flushes'] or \
             launched['flushes'] < 1:
         fail(f'recorded run: {launched["presence_histogram"]} histogram '
@@ -458,7 +702,8 @@ def phase_recorded(torch, device_name, out):
     fallback = sim.get_presence_counts(sim.case_ids[0], 0)
     recounted = _read_counts()
     if recounted['presence_histogram_batch'] != 1 or \
-            recounted['fused_step'] or recounted['presence_histogram']:
+            recounted['fused_step'] or recounted['fused_chunk'] or \
+            recounted['presence_histogram']:
         fail(f'recorded run: the pkl fallback launched {recounted}, not '
              'the count kernel once')
     launched['presence_histogram_batch'] = \
@@ -476,6 +721,7 @@ def phase_recorded(torch, device_name, out):
              'the int16 recount')
     useful = rec['useful_steps']
     say(f'recorded run: {cfg.track_count} tracks, {steps} steps, '
+        f'{launched["fused_chunk"]} chunk kernel launches, '
         f'{launched["flushes"]} flushes, {useful} agent-steps in '
         f'{rec["seconds"]:.3f} s = {useful / rec["seconds"]:.4g} '
         f'agent-steps/s on {device_name}; track rebuild '
@@ -595,6 +841,255 @@ def phase_solver(torch, sim, device_name):
                          'seconds': hard_s, **hard_stats}}
 
 
+def _fresh(torch, state):
+    """A copy of ``state`` with its own tensors and an empty map."""
+    return dataclasses.replace(
+        state, pos_r=state.pos_r.clone(), pos_c=state.pos_c.clone(),
+        mem=state.mem.clone(), alive=state.alive.clone(),
+        palive=state.palive.clone(),
+        presence=torch.zeros_like(state.presence))
+
+
+def _live_steps(before, after):
+    """Live agent-steps of a run of chunk steps from state ``before`` to
+    ``after``: the presence it added counts every pending agent once a
+    step, that is ``before``'s pending agents and every live step but
+    the last step's, which stays pending in ``after``."""
+    added = int(after.presence.sum()) - int(before.presence.sum())
+    return added - int(before.palive.sum()) + int(after.palive.sum())
+
+
+def _chunk_segments(torch, state0, whole, chunk, u):
+    """The CHUNK_T steps of ``chunk`` again as launches of CHUNK_SEG
+    steps, each timed on the device: [(first step, end, ms, live
+    agent-steps)]. The segmented run must end in ``whole``'s state."""
+    st = _fresh(torch, state0)
+    out = []
+    for s0 in range(0, CHUNK_T, CHUNK_SEG):
+        before = dataclasses.replace(st, presence=st.presence.clone(),
+                                     palive=st.palive.clone())
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        st = chunk(st, u=u[s0:s0 + CHUNK_SEG], s0=s0)
+        e1.record()
+        torch.cuda.synchronize()
+        out.append((s0, st.step, e0.elapsed_time(e1),
+                    _live_steps(before, st)))
+    for name in ('pos_r', 'pos_c', 'mem', 'alive', 'palive', 'presence'):
+        if not torch.equal(getattr(st, name), getattr(whole, name)):
+            fail(f'main field: the chunk in segments differs in {name}')
+    return out
+
+
+def phase_chunk_main(torch, sim, device_name):
+    """The chunk kernel on the main run's own table (rebuilt from its
+    updraft and cached potential) and starts: one CHUNK_T-step launch
+    against CHUNK_T per-step launches and the plain version from the same
+    state with the same uniforms (exactly equal states), both kernels
+    timed in turns (chunk, per-step, per-step, chunk); the uniform block
+    timed on its own; a warm track phase, plain and profiled, equal to the
+    run's counts; and the per-step driver (``simulate_presence``, the path
+    of the fused step kernel) at the same width."""
+    from ssrs_tpu_torch.agents import get_starting_indices
+    from ssrs_tpu_torch.agents.fused_chunk import (fused_chunk,
+                                                   fused_chunk_plain)
+    from ssrs_tpu_torch.agents.moves import (directional_probs,
+                                             restriction_table)
+    from ssrs_tpu_torch.agents.simulate import (
+        init_state, make_step_fn, prepared_weights, simulate_presence,
+        simulate_presence_compacting)
+    from ssrs_tpu_torch.core.rng import case_generator
+    dev = sim.device
+    params = sim._track_params()
+    case = sim.case_ids[0]
+    ident = sim._get_id_string(case, 0)
+    pot = torch.from_numpy(np.load(os.path.join(
+        sim.mode_data_dir, f'{ident}_potential.npy'))).to(dev)
+    dirp = torch.from_numpy(directional_probs(params.move_dirn)).to(dev)
+    restr = torch.from_numpy(restriction_table()).to(dev)
+    table = prepared_weights(sim.load_updrafts(case)[0].float(), pot, dirp,
+                             params.weight_dtype)
+    rows, cols = get_starting_indices(
+        sim.track_count, list(sim.track_start_region), sim.track_start_type,
+        tuple(sim.region_width_km), float(sim.resolution),
+        rng=np.random.default_rng(sim.sim_seed))
+    starts = np.stack([rows, cols], axis=1).astype(np.int32)
+    state0 = init_state(params, starts, device=dev)
+    n = state0.pos_r.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(2030)
+    u = torch.rand((CHUNK_T, n), generator=gen, device=dev)
+    step = make_step_fn(params, table, dirp, restr)
+    kw = dict(nu=params.nu, memory_k=params.memory_k,
+              burnin=params.burnin, nsteps=params.nsteps)
+
+    def chunk(st, fn=fused_chunk, u=u, s0=0):
+        fn(table, restr, dirp, st.pos_r, st.pos_c, st.mem, st.alive,
+           st.palive, u, st.presence, s0=s0, **kw)
+        return dataclasses.replace(st, step=s0 + u.shape[0])
+
+    def per_step(st):
+        for t in range(CHUNK_T):
+            st = step(st, u=u[t])
+        return st
+
+    runs, times = {}, {'chunk': [], 'per_step': []}
+    for name in ('chunk', 'per_step', 'per_step', 'chunk'):
+        fn = chunk if name == 'chunk' else per_step
+        st = _fresh(torch, state0)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = fn(st)
+        e1.record()
+        runs.setdefault(name, out)
+        torch.cuda.synchronize()
+        dev_ms = e0.elapsed_time(e1)
+        st = _fresh(torch, state0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(st)
+        torch.cuda.synchronize()
+        times[name].append((dev_ms, (time.perf_counter() - t0) * 1e3))
+    st = _fresh(torch, state0)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    plain = chunk(st, fused_chunk_plain)
+    e1.record()
+    torch.cuda.synchronize()
+    plain_ms = (e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3)
+    got = runs['chunk']
+    for other in ('per_step', 'plain'):
+        want = runs['per_step'] if other == 'per_step' else plain
+        for name in ('pos_r', 'pos_c', 'mem', 'alive', 'palive',
+                     'presence'):
+            if not torch.equal(getattr(got, name), getattr(want, name)):
+                fail(f'main field: the {CHUNK_T}-step chunk differs from '
+                     f'{CHUNK_T} {other} steps in {name}')
+        if got.step != want.step:
+            fail(f'main field: step {got.step} != {other} {want.step}')
+    live = _live_steps(state0, got)
+    cells = int((got.presence > 0).sum())
+    segments = _chunk_segments(torch, state0, got, chunk, u)
+    # the recorded run's width: the first RECORDED_TRACKS starts, one
+    # launch of CHUNK_T steps
+    small0 = init_state(params, starts[:RECORDED_TRACKS], device=dev)
+    st = _fresh(torch, small0)
+    u_small = u[:, :RECORDED_TRACKS].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    st = chunk(st, u=u_small)
+    e1.record()
+    torch.cuda.synchronize()
+    small = (e0.elapsed_time(e1), _live_steps(small0, st))
+    bound_ms, bound_by = _chunk_bound(n, params.memory_k,
+                                      9 * table.element_size(), live, cells)
+    draw_ms = _device_ms(
+        torch, lambda: torch.rand((CHUNK_T, n), generator=gen, device=dev),
+        steps=20)
+    ck = [t[0] for t in times['chunk']]
+    cw = [t[1] for t in times['chunk']]
+    sk = [t[0] for t in times['per_step']]
+    sw = [t[1] for t in times['per_step']]
+    say(f'main field chunk ({n} agents, {CHUNK_T} steps from step 0, '
+        f'{str(table.dtype)[6:]} table, k={params.memory_k}, '
+        f'nu={params.nu}): '
+        f'exactly equal to {CHUNK_T} per-step launches and to the plain '
+        f'version; {live} live agent-steps, {cells} cells. In turns: chunk '
+        f'{ck[0]:.3f} ms device / {cw[0]:.3f} ms wall, per-step '
+        f'{sk[0]:.3f} / {sw[0]:.3f} ms, per-step {sk[1]:.3f} / {sw[1]:.3f} '
+        f'ms, chunk {ck[1]:.3f} / {cw[1]:.3f} ms (per-step device ms: CUDA '
+        f'events around the enqueue, host gaps included); plain '
+        f'{plain_ms[0]:.1f} / {plain_ms[1]:.1f} ms; bound {bound_ms:.4f} ms '
+        f'({bound_by}); uniform block ({CHUNK_T}, {n}) drawn in '
+        f'{draw_ms:.3f} ms device on {device_name}')
+    say(f'main field chunk in launches of {CHUNK_SEG} steps (device ms, '
+        'live agent-steps, ps of device time per live agent-step): '
+        + '; '.join(
+            f'steps {a}-{b - 1}: {ms:.3f} ms, {n_live}, '
+            f'{ms * 1e9 / max(n_live, 1):.1f}' for a, b, ms, n_live in
+            segments) + f'; {RECORDED_TRACKS} agents, steps 0-{CHUNK_T - 1}: '
+        f'{small[0]:.3f} ms, {small[1]}, {small[0] * 1e9 / small[1]:.1f}')
+
+    # a warm track phase, plain and profiled: the run's generator gives
+    # the run's counts
+    counts = sim.get_presence_counts(case, 0)
+
+    def track_phase():
+        return simulate_presence_compacting(
+            params, starts, case_generator(sim.sim_seed, case, 0, 'tracks',
+                                           dev), base_flat=table, dirp=dirp)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    presence, steps = track_phase()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    profiled = []
+    launches, device_ms, prof_s = _profile_launches(
+        torch, lambda: profiled.append(track_phase()))
+    for p_map, p_steps in ((presence, steps), profiled[0]):
+        if p_steps != steps or not np.array_equal(p_map.cpu().numpy(),
+                                                  counts):
+            fail('main field: a warm track phase differs from the run')
+    useful = int(counts.sum(dtype=np.int64)) - n
+    say(f'warm track phase: {steps} steps in {warm_s:.3f} s = '
+        f'{useful / warm_s:.4g} agent-steps/s, equal to the run; profiled: '
+        f'{launches} launches = {launches / steps:.4f} per step, '
+        f'{device_ms:.1f} ms device in {prof_s:.3f} s (busy '
+        f'{device_ms / (prof_s * 1e3):.1%}) on {device_name}')
+
+    # the per-step driver: the path of the fused step kernel
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    presence, ps_steps = simulate_presence(
+        params, starts, torch.Generator(device=dev).manual_seed(2031),
+        base_flat=table, dirp=dirp)
+    torch.cuda.synchronize()
+    ps_s = time.perf_counter() - t0
+    per_step_path = _read_counts()
+    mass = int(presence.sum())
+    if per_step_path['fused_step'] != ps_steps or \
+            per_step_path['fused_chunk'] or \
+            per_step_path['presence_histogram'] != 1 or \
+            mass < n * (params.burnin + 1):
+        fail(f'per-step driver: {per_step_path} for {ps_steps} steps, mass '
+             f'{mass}')
+    say(f'per-step driver (simulate_presence, {n} agents): {ps_steps} steps '
+        f'through {per_step_path["fused_step"]} fused step launches, 0 chunk '
+        f'launches, {mass - n} agent-steps in {ps_s:.3f} s = '
+        f'{(mass - n) / ps_s:.4g} agent-steps/s')
+    return {
+        'chunk_ms': float(np.median(ck)), 'chunk_wall_ms': cw,
+        'chunk_device_ms': ck, 'per_step_device_ms': sk,
+        'per_step_wall_ms': sw, 'plain_ms': plain_ms[0],
+        'plain_wall_ms': plain_ms[1], 'bound_ms': bound_ms,
+        'bound_by': bound_by, 'live_agent_steps': live, 'cells': cells,
+        'segments': [{'steps': [a, b], 'ms': ms, 'live_agent_steps': n_live}
+                     for a, b, ms, n_live in segments],
+        'chunk_ms_recorded_width': small[0],
+        'live_agent_steps_recorded_width': small[1],
+        'uniform_draw_ms': draw_ms, 'warm_track_s': warm_s,
+        'warm_steps': steps, 'profiled_launches': launches,
+        'launches_per_step': launches / steps,
+        'profiled_device_ms': device_ms, 'profiled_wall_s': prof_s,
+        'busy_share': device_ms / (prof_s * 1e3),
+        'per_step_driver': {'steps': ps_steps, 'seconds': ps_s,
+                            'agent_steps': mass - n},
+        'per_step_path_launches': per_step_path}
+
+
 def _small_maps(torch, config):
     """The smoothed, normalized count maps of ``config`` on the card and
     through the plain versions on the CPU, on one potential: the CPU run
@@ -648,10 +1143,12 @@ def main() -> int:
     name = phase_device(torch)
     phase_build()
     max_err, timing = phase_kernel(torch)
+    chunk_err = phase_chunk(torch)
     hist = phase_hist(torch)
     with tempfile.TemporaryDirectory(dir=REPO, prefix='.smoke_') as out:
         main_run, sim = phase_main(torch, name, out)
         solver = phase_solver(torch, sim, name)
+        engine = phase_chunk_main(torch, sim, name)
         recorded = phase_recorded(torch, name, out)
     phase_small(torch)
     if any(m for m in sys.modules if m.split('.')[0] in ('jax', 'ssrs_tpu')):
@@ -661,25 +1158,49 @@ def main() -> int:
         'name': 'fused_step', 'route': 'cuda',
         'source': 'ssrs_tpu_torch/csrc/fused_step.cu',
         'replaces': 'ssrs_tpu/agents/fused_step.py:52',
+        # its path: the per-step driver simulate_presence
+        'path': 'simulate_presence',
+        'launches': engine['per_step_path_launches']['fused_step'],
         'max_abs_err': max_err, 'ms': bf16['ms'],
-        'plain_ms': bf16['plain_ms'], 'ms_float32': f32['ms'],
-        'plain_ms_float32': f32['plain_ms']}]
-    for name_k, line in (('presence_histogram', 31),
-                         ('presence_histogram_batch', 59)):
+        'plain_ms': bf16['plain_ms'], 'bound_ms': bf16['bound_ms'],
+        'bound_by': bf16['bound_by'], 'library_ms': None,
+        'ms_float32': f32['ms'], 'plain_ms_float32': f32['plain_ms']}, {
+        'name': 'fused_chunk', 'route': 'cuda',
+        'source': 'ssrs_tpu_torch/csrc/fused_chunk.cu',
+        'replaces': 'ssrs_tpu/agents/fused_step.py:52',
+        'path': 'uniform run (simulate_presence_compacting)',
+        'launches': main_run['fused_chunk'],
+        'max_abs_err': chunk_err, 'ms': engine['chunk_ms'],
+        'plain_ms': engine['plain_ms'], 'bound_ms': engine['bound_ms'],
+        'bound_by': engine['bound_by'], 'library_ms': None,
+        'steps': CHUNK_T, 'per_step_ms': engine['per_step_device_ms'],
+        'uniform_draw_ms': engine['uniform_draw_ms']}]
+    for name_k, line, path, launches in (
+            ('presence_histogram', 31, 'uniform run (flush_pending)',
+             main_run['presence_histogram']),
+            ('presence_histogram_batch', 59,
+             "get_presence_counts' .pkl fallback",
+             recorded['presence_histogram_batch'])):
         tm = hist[name_k]
         kernels.append({
             'name': name_k, 'route': 'cuda',
             'source': 'ssrs_tpu_torch/csrc/presence_hist.cu',
             'replaces': f'ssrs_tpu/agents/pallas_hist.py:{line}',
+            'path': path, 'launches': launches,
             'max_abs_err': tm['max_abs_err'], 'ms': tm['ms'],
-            'plain_ms': tm['plain_ms']})
+            'plain_ms': tm['plain_ms'], 'bound_ms': tm['bound_ms'],
+            'bound_by': tm['bound_by'], 'library_ms': tm['library_ms']})
     for k in kernels:
-        # launches: the recorded-track run (A and B) and its pkl fallback
-        # (C), each counted from 0 just before it; launches_uniform_run:
-        # the 100,000-track run (A and B)
-        k['launches'] = recorded[k['name']]
+        # launches: the run of the kernel's own path (above), counted from
+        # 0 just before it; beside it the 100,000-track uniform run and the
+        # 10,000-track recorded run, each counted from 0 just before it
         k['launches_uniform_run'] = main_run[k['name']]
-    print(json.dumps({'solver': solver}), flush=True)
+        k['launches_recorded_run'] = recorded[k['name']]
+        if k['launches'] < 1:
+            fail(f'{k["name"]}: not launched on its path')
+    engine = {key: v for key, v in engine.items()
+              if key != 'per_step_path_launches'}
+    print(json.dumps({'solver': solver, 'engine': engine}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

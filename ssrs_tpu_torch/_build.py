@@ -29,8 +29,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-Xcompiler', '-fPIC')
 
 # what the last call to load_library did: seconds spent building (0 when
-# the library was already built) and nvcc's output (ptxas register and
-# shared-memory report)
+# the library was already built) and nvcc's output (ptxas register,
+# shared-memory, stack-frame and spill report), which is kept beside the
+# library as ``<library>.log``
 build_info = {'seconds': 0.0, 'log': '', 'path': ''}
 
 
@@ -73,9 +74,10 @@ def _compile(out_path: str) -> None:
         os.unlink(tmp)
         raise RuntimeError(f'nvcc failed ({proc.returncode}): '
                            f'{" ".join(cmd)}\n{proc.stderr}{proc.stdout}')
+    with open(out_path + '.log', 'w', encoding='utf-8') as fobj:
+        fobj.write(proc.stderr + proc.stdout)
     os.replace(tmp, out_path)  # atomic: a concurrent process never sees half
     build_info['seconds'] = time.perf_counter() - t0
-    build_info['log'] = proc.stderr + proc.stdout
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -85,6 +87,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         # table restr dirp pr pc r c alive palive mem u new_r new_c
         # new_mem presence, n nrow ncol memory_k, nu, stream
         fn.argtypes = [ptr] * 15 + [i32] * 4 + [f32, ptr]
+        fn.restype = i32
+    for name in ('ssrs_fused_chunk_f32', 'ssrs_fused_chunk_bf16'):
+        fn = getattr(lib, name)
+        # table restr dirp r c mem alive palive u presence emit_pos
+        # emit_alive, n nrow ncol memory_k, nu, s0 steps burnin nsteps,
+        # stream
+        fn.argtypes = [ptr] * 12 + [i32] * 4 + [f32] + [i32] * 4 + [ptr]
         fn.restype = i32
     i64 = ctypes.c_int64
     # rows cols weights acc out, n nrow ncol, stream
@@ -106,6 +115,9 @@ def load_library() -> ctypes.CDLL:
     if not os.path.isfile(path):
         _compile(path)
     build_info['path'] = path
+    if os.path.isfile(path + '.log'):
+        with open(path + '.log', encoding='utf-8') as fobj:
+            build_info['log'] = fobj.read()
     lib = ctypes.CDLL(path)
     _declare(lib)
     return lib

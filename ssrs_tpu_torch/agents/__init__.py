@@ -1,10 +1,11 @@
-"""Agent engine: move tables, start sampler, the fused step kernel, the
-presence histogram kernels, the lockstep drivers (with compaction, and
-with recorded trajectories), presence counting and smoothing."""
+"""Agent engine: move tables, start sampler, the fused step and chunk
+kernels, the presence histogram kernels, the lockstep drivers (with
+compaction, and with recorded trajectories), presence counting and
+smoothing."""
 
-# the modules ``agents.fused_step`` and ``agents.presence_hist`` hold
-# kernel wrappers of the same names; they are not re-exported here, so
-# the submodules stay reachable
+# the modules ``agents.fused_step``, ``agents.fused_chunk`` and
+# ``agents.presence_hist`` hold kernel wrappers of the same names; they
+# are not re-exported here, so the submodules stay reachable
 from .fused_step import fused_step_plain, launch_count, reset_launch_count
 from .moves import directional_probs, restriction_table
 from .presence import (circular_kernel, compute_presence_counts,
@@ -13,7 +14,8 @@ from .presence import (circular_kernel, compute_presence_counts,
 from .presence_hist import (presence_histogram_batch_plain,
                             presence_histogram_plain)
 from .simulate import (RecordedRun, SimState, TrackParams, flush_count,
-                       flush_pending, init_state, make_step_fn,
+                       flush_pending, init_state, make_chunk_fn,
+                       make_step_fn,
                        prepared_weights, reset_flush_count, simulate_presence,
                        simulate_presence_compacting,
                        simulate_tracks_recorded, state_from_numpy,
@@ -27,7 +29,7 @@ __all__ = ['fused_step_plain', 'launch_count',
            'smooth_presence_from_counts', 'presence_histogram_batch_plain',
            'presence_histogram_plain', 'RecordedRun', 'SimState',
            'TrackParams', 'flush_count', 'flush_pending', 'init_state',
-           'make_step_fn', 'prepared_weights',
+           'make_chunk_fn', 'make_step_fn', 'prepared_weights',
            'reset_flush_count', 'simulate_presence',
            'simulate_presence_compacting', 'simulate_tracks_recorded',
            'state_from_numpy', 'weights_from_numpy',

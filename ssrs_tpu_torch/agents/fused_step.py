@@ -15,6 +15,9 @@ gather and the presence histogram that sat beside that kernel in XLA
 - :func:`fused_step_plain` is the same function in plain PyTorch, with
   the kernel's arithmetic order (sequential sums written out as nine
   adds), so that for the same uniforms both give the same moves.
+- :func:`alive_and_push` is the step's prologue (alive rule and burn-in
+  push), shared with the chunk kernel's plain version
+  (``agents/fused_chunk.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,31 @@ def launch_count() -> int:
 def reset_launch_count() -> None:
     global _launches
     _launches = 0
+
+
+def push_from_boundary(r: torch.Tensor, c: torch.Tensor, nrow: int,
+                       ncol: int):
+    """Burn-in boundary push (ssrs/movmodel.py:205-217). Note the
+    reference's asymmetry: rows pushed when <= 1, cols when <= 0."""
+    r = torch.where(r <= 1, r + 2, torch.where(r >= nrow - 2, r - 2, r))
+    c = torch.where(c <= 0, c + 2, torch.where(c >= ncol - 2, c - 2, c))
+    return r, c
+
+
+def alive_and_push(step: int, alive: torch.Tensor, r: torch.Tensor,
+                   c: torch.Tensor, nrow: int, ncol: int, burnin: int,
+                   nsteps: int):
+    """Step ``step``'s alive flags and the cells its moves start from:
+    nobody is alive from the cap on; after the burn-in an agent off the
+    interior dies; during it the move starts from the pushed cell. The
+    rule of one step, for the per-step and the chunk kernels' callers."""
+    if step >= nsteps:
+        return torch.zeros_like(alive), r, c
+    if step > burnin:
+        in_interior = (r > 0) & (r < nrow - 1) & (c > 0) & (c < ncol - 1)
+        return alive & in_interior, r, c
+    pr, pc = push_from_boundary(r, c, nrow, ncol)
+    return alive, pr, pc
 
 
 def fused_step_plain(table: torch.Tensor, restr: torch.Tensor,

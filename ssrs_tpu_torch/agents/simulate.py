@@ -5,8 +5,11 @@ parts the uniform-mode run uses: the compacting driver, the recording
 driver that rebuilds every trajectory, and the non-compacting
 ``simulate_presence``. The reference simulates each track
 with a sequential Python loop in a process pool (ssrs/movmodel.py:264-318);
-here the whole population advances one step per launch of the fused step
-kernel (``agents/fused_step.py``):
+here the whole population advances in lockstep: the compacting and the
+recording drivers run a chunk of steps per launch of the chunk kernel
+(``agents/fused_chunk.py``), ``simulate_presence`` and direction
+memories longer than the chunk kernel takes one step per launch of the
+fused step kernel (``agents/fused_step.py``):
 
 - per-cell move weights (harmonic-mean updraft lift x potential drop x
   inverse distance, ssrs/movmodel.py:294-305) depend only on the cell, so
@@ -16,7 +19,7 @@ kernel (``agents/fused_step.py``):
   indices, AND-ing rows of the (9, 9) restriction table
   (ssrs/movmodel.py:307-309);
 - moves are sampled by inverse-CDF with one uniform per agent-step from a
-  ``torch.Generator``;
+  ``torch.Generator`` (a chunk draws its uniforms as one block);
 - burn-in boundary pushes and boundary absorption are masks
   (ssrs/movmodel.py:276,285-291,205-217);
 - presence counts accumulate on the device in an int32 (nrow, ncol) map.
@@ -44,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from ..native import make_builder
-from .fused_step import fused_step
+from .fused_chunk import MAX_MEMORY_K, fused_chunk
+from .fused_step import alive_and_push, fused_step
 from .moves import (CENTER_ZERO, NEIGHBOR_DELTAS, NEIGHBOR_NORMS_INV,
                     directional_probs, restriction_table)
 from .presence_hist import presence_histogram
@@ -174,6 +178,8 @@ class SimState:
     presence: torch.Tensor   # (nrow, ncol) int32; steps add into it in
     #                          place
     step: int                # steps taken, saturating at nsteps
+    # make_step_fn's step returns new position, memory and flag tensors;
+    # make_chunk_fn's advance updates them in place
 
 
 def init_state(params: TrackParams, start_rc, valid=None,
@@ -184,11 +190,15 @@ def init_state(params: TrackParams, start_rc, valid=None,
     ``valid`` marks real agents; others start dead and count nothing."""
     pos = torch.as_tensor(start_rc, dtype=torch.int32, device=device)
     n = pos.shape[0]
+    # every state tensor is the state's own: the chunk kernel updates them
+    # in place
     alive = torch.ones(n, dtype=torch.bool, device=pos.device) \
         if valid is None else torch.as_tensor(valid, dtype=torch.bool,
-                                              device=pos.device)
+                                              device=pos.device).clone()
+    own = torch.contiguous_format
     return SimState(
-        pos_r=pos[:, 0].contiguous(), pos_c=pos[:, 1].contiguous(),
+        pos_r=pos[:, 0].clone(memory_format=own),
+        pos_c=pos[:, 1].clone(memory_format=own),
         mem=torch.full((max(params.memory_k, 1), n), 4, dtype=torch.int32,
                        device=pos.device),
         alive=alive, palive=alive.clone(),
@@ -214,28 +224,6 @@ def state_from_numpy(params: TrackParams, pos_r, pos_c, mem, alive, palive,
         palive=dev(np.asarray(palive) != 0, torch.bool),
         presence=dev(np.asarray(presence)[:nrow, :ncol], torch.int32),
         step=int(step))
-
-
-def _push_from_boundary(r: torch.Tensor, c: torch.Tensor, nrow: int,
-                        ncol: int):
-    """Burn-in boundary push (ssrs/movmodel.py:205-217). Note the
-    reference's asymmetry: rows pushed when <= 1, cols when <= 0."""
-    r = torch.where(r <= 1, r + 2, torch.where(r >= nrow - 2, r - 2, r))
-    c = torch.where(c <= 0, c + 2, torch.where(c >= ncol - 2, c - 2, c))
-    return r, c
-
-
-def _alive_and_push(params: TrackParams, state: SimState):
-    """This step's alive flags and the positions the move starts from."""
-    nrow, ncol = params.grid_shape
-    r, c = state.pos_r, state.pos_c
-    if state.step >= params.nsteps:
-        return torch.zeros_like(state.alive), r, c
-    if state.step > params.burnin:
-        in_interior = (r > 0) & (r < nrow - 1) & (c > 0) & (c < ncol - 1)
-        return state.alive & in_interior, r, c
-    pr, pc = _push_from_boundary(r, c, nrow, ncol)
-    return state.alive, pr, pc
 
 
 # flushes since the last reset_flush_count(); a flush on the card launches
@@ -280,7 +268,10 @@ def make_step_fn(params: TrackParams, base_flat: torch.Tensor,
     """
     def step(state: SimState, u: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None) -> SimState:
-        alive, pr, pc = _alive_and_push(params, state)
+        nrow, ncol = params.grid_shape
+        alive, pr, pc = alive_and_push(state.step, state.alive, state.pos_r,
+                                       state.pos_c, nrow, ncol, params.burnin,
+                                       params.nsteps)
         if u is None:
             u = torch.rand(state.pos_r.shape[0], generator=generator,
                            dtype=torch.float32, device=state.pos_r.device)
@@ -294,6 +285,63 @@ def make_step_fn(params: TrackParams, base_flat: torch.Tensor,
                         step=min(state.step + 1, params.nsteps))
 
     return step
+
+
+# the most uniforms one chunk launch draws as a block: 2**26 float32
+# values (256 MiB); a chunk of more agent-steps runs as several launches
+UNIFORM_BLOCK = 2 ** 26
+
+
+def make_chunk_fn(params: TrackParams, base_flat: torch.Tensor,
+                  dirp: torch.Tensor, restr: torch.Tensor):
+    """The chunk transition ``advance(state, steps, generator, emit=None)``.
+
+    It runs ``steps`` steps from ``state.step`` and returns the state with
+    the step counter advanced (saturating at the cap). Each launch of the
+    chunk kernel (``agents/fused_chunk.py``) covers up to
+    ``UNIFORM_BLOCK // N`` steps, whose uniforms it draws from
+    ``generator`` as one ``(T, N)`` block; the state tensors are updated
+    in place. ``emit``: optional ``(positions int16 (steps, N, 2), flags
+    bool (steps, N))`` that receive each step's new positions and alive
+    flags. A direction memory longer than ``MAX_MEMORY_K`` takes the
+    per-step loop of :func:`make_step_fn`. Callers must
+    :func:`flush_pending` at the end.
+    """
+    if params.memory_k > MAX_MEMORY_K:
+        step = make_step_fn(params, base_flat, dirp, restr)
+
+        def advance_by_step(state: SimState, steps: int,
+                            generator: torch.Generator, emit=None):
+            for t in range(steps):
+                state = step(state, generator=generator)
+                if emit is not None:
+                    emit[0][t, :, 0] = state.pos_r
+                    emit[0][t, :, 1] = state.pos_c
+                    emit[1][t] = state.alive
+            return state
+
+        return advance_by_step
+
+    def advance(state: SimState, steps: int, generator: torch.Generator,
+                emit=None) -> SimState:
+        n = state.pos_r.shape[0]
+        block = max(1, UNIFORM_BLOCK // max(n, 1))
+        for t0 in range(0, steps, block):
+            t_len = min(block, steps - t0)
+            u = torch.rand((t_len, n), generator=generator,
+                           dtype=torch.float32, device=state.pos_r.device)
+            fused_chunk(
+                base_flat, restr, dirp, state.pos_r, state.pos_c, state.mem,
+                state.alive, state.palive, u, state.presence, nu=params.nu,
+                memory_k=params.memory_k, s0=state.step,
+                burnin=params.burnin, nsteps=params.nsteps,
+                emit=None if emit is None else
+                (emit[0][t0:t0 + t_len], emit[1][t0:t0 + t_len]))
+            state = dataclasses.replace(
+                state, step=min(state.step + t_len, params.nsteps))
+        return state
+
+    return advance
 
 
 def _bucket_for(n_alive: int, min_bucket: int, quantum: int = 1) -> int:
@@ -347,10 +395,11 @@ def _compact_body(state: SimState, m: int):
 
 
 def _prologue(params: TrackParams, start_rc, generator: torch.Generator,
-              updraft, potential, valid, base_flat, dirp):
-    """The initial state and the step function of a driver, on
-    ``generator.device``; the weight table is built from ``updraft`` and
-    ``potential`` unless ``base_flat`` is given."""
+              updraft, potential, valid, base_flat, dirp, chunked=True):
+    """The initial state and the chunk function (:func:`make_chunk_fn`;
+    the step function of :func:`make_step_fn` unless ``chunked``) of a
+    driver, on ``generator.device``; the weight table is built from
+    ``updraft`` and ``potential`` unless ``base_flat`` is given."""
     device = generator.device
     if dirp is None:
         dirp = torch.from_numpy(directional_probs(params.move_dirn))
@@ -369,7 +418,8 @@ def _prologue(params: TrackParams, start_rc, generator: torch.Generator,
         base_flat = prepared_weights(updraft, potential, dirp,
                                      params.weight_dtype)
     state = init_state(params, start_rc, valid=valid, device=device)
-    return state, make_step_fn(params, base_flat, dirp, restr)
+    make = make_chunk_fn if chunked else make_step_fn
+    return state, make(params, base_flat, dirp, restr)
 
 
 def simulate_presence(params: TrackParams, start_rc,
@@ -397,7 +447,7 @@ def simulate_presence(params: TrackParams, start_rc,
     ``(presence, steps, tracks, lengths)``.
     """
     state, step = _prologue(params, start_rc, generator, updraft,
-                            potential, valid, base_flat, dirp)
+                            potential, valid, base_flat, dirp, chunked=False)
     if record_tracks:
         n = state.pos_r.shape[0]
         tracks = torch.empty((params.nsteps + 1, n, 2), dtype=torch.int16,
@@ -438,8 +488,9 @@ def simulate_presence_compacting(params: TrackParams, start_rc,
     ``potential`` are ignored. ``dirp`` optionally overrides the
     directional prior derived from ``params.move_dirn``.
 
-    A Python loop over chunks of ``chunk`` steps reads the alive count
-    once per chunk; whenever the live population falls below the current
+    A Python loop over chunks of ``chunk`` steps (each one launch of the
+    chunk kernel per ``UNIFORM_BLOCK`` uniforms, :func:`make_chunk_fn`)
+    reads the alive count once per chunk; whenever the live population falls below the current
     bucket, the survivors are packed into the next {1,1.5}*2^k bucket.
     ``tail_bucket`` sets the bucket below which no compaction happens
     (:func:`_norm_tail_bucket`). The run stops when every agent is dead
@@ -448,15 +499,15 @@ def simulate_presence_compacting(params: TrackParams, start_rc,
 
     Returns (presence int32 (nrow, ncol) on the device, steps taken).
     """
-    state, step = _prologue(params, start_rc, generator, updraft,
-                            potential, valid, base_flat, dirp)
+    state, advance = _prologue(params, start_rc, generator, updraft,
+                               potential, valid, base_flat, dirp)
     floor = max(min_bucket, _norm_tail_bucket(tail_bucket, min_bucket))
     # optimistic initial count: a population that starts all dead ends
     # the loop after one chunk of no-op steps
     n_alive = state.pos_r.shape[0]
     while state.step < params.nsteps and n_alive > 0:
-        for _ in range(min(chunk, params.nsteps - state.step)):
-            state = step(state, generator=generator)
+        state = advance(state, min(chunk, params.nsteps - state.step),
+                        generator)
         n_alive = int(state.alive.sum())
         cur = state.pos_r.shape[0]
         if n_alive > 0 and cur > floor:
@@ -503,8 +554,9 @@ def simulate_tracks_recorded(params: TrackParams, start_rc,
 
     The compacting loop of :func:`simulate_presence_compacting` (same
     ``chunk``, ``min_bucket``, bucket ladder and stable compaction, no
-    tail bucket), which also writes each step's new positions (int16) and
-    alive flags into a per-chunk device buffer together with the id
+    tail bucket), whose chunk kernel also writes each step's new
+    positions (int16) and alive flags into a per-chunk device buffer,
+    beside the id
     vector that maps batch slots to agents; compaction permutes the ids
     with the order it packs the agents by. The buffer comes to the host
     in one copy per chunk, and the track builder (``ssrs_tpu_torch.native``)
@@ -519,8 +571,8 @@ def simulate_tracks_recorded(params: TrackParams, start_rc,
     and seconds.
     """
     start_rc = np.asarray(start_rc, np.int32)
-    state, step = _prologue(params, start_rc, generator, updraft,
-                            potential, None, base_flat, dirp)
+    state, advance = _prologue(params, start_rc, generator, updraft,
+                               potential, None, base_flat, dirp)
     device = state.pos_r.device
     builder = make_builder(start_rc.astype(np.int16))
     ids = torch.arange(start_rc.shape[0], dtype=torch.int32, device=device)
@@ -533,11 +585,7 @@ def simulate_tracks_recorded(params: TrackParams, start_rc,
                           device=device)
         pos, ids_out, alive = _split_emissions(buf, t_len, b, _TORCH_VIEWS)
         ids_out.copy_(ids)
-        for t in range(t_len):
-            state = step(state, generator=generator)
-            pos[t, :, 0] = state.pos_r
-            pos[t, :, 1] = state.pos_c
-            alive[t] = state.alive
+        state = advance(state, t_len, generator, emit=(pos, alive))
         # the chunk's one device-to-host copy
         pos_h, ids_h, alive_h = _split_emissions(buf.cpu().numpy(), t_len,
                                                  b, _NUMPY_VIEWS)

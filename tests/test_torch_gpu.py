@@ -15,7 +15,9 @@ import pytest
 import torch
 
 import ssrs_tpu_torch
+from ssrs_tpu_torch.agents import fused_chunk as fc
 from ssrs_tpu_torch.agents import fused_step as fs
+from ssrs_tpu_torch.agents import simulate as tsim
 from ssrs_tpu_torch.agents import presence_hist as ph
 from ssrs_tpu_torch.agents.moves import directional_probs, restriction_table
 from ssrs_tpu_torch.agents.presence import smooth_presence
@@ -94,6 +96,85 @@ def test_wrapper_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError, match='on'):
         _call(fs.fused_step, table.cpu(), a,
               torch.zeros(GRID, dtype=torch.int32, device=cuda), 1.0, 1)
+
+
+def _chunk_inputs(seed, k, dtype, t_len, dev):
+    """A table with all-zero and sparse rows, and a state over the whole
+    grid (border cells included) with dead agents, palive 0 and random
+    memory; most agents die at the boundary within a few hundred steps."""
+    table, a = _inputs(seed, k, dtype, dev)
+    rng = np.random.default_rng(seed + 1)
+    state = dict(r=a['r'].clone(), c=a['c'].clone(), mem=a['mem'].clone(),
+                 alive=a['alive'].clone(), palive=a['palive'].clone())
+    u = torch.from_numpy(rng.random((t_len, N)).astype(np.float32)).to(dev)
+    return table, state, u
+
+
+def _noise_emission(t_len, seed, dev):
+    """Emission rows filled with noise, so that an unwritten row shows."""
+    rng = np.random.default_rng(seed)
+    pos = torch.from_numpy(rng.integers(-999, 999, (t_len, N, 2))
+                           .astype(np.int16)).to(dev)
+    flags = torch.from_numpy(rng.random((t_len, N)) < 0.5).to(dev)
+    return pos, flags
+
+
+def _chunk_call(fn, table, st, u, presence, nu, k, s0, nsteps, emit):
+    dev = presence.device
+    fn(table, torch.from_numpy(restriction_table()).to(dev),
+       torch.from_numpy(directional_probs(0.)).to(dev), st['r'], st['c'],
+       st['mem'], st['alive'], st['palive'], u, presence, nu=nu, memory_k=k,
+       s0=s0, burnin=5, nsteps=nsteps, emit=emit)
+
+
+@pytest.mark.parametrize('t_len', [1, 37, 512])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('k', [0, 1, 3])
+@pytest.mark.parametrize('nu', [1.0, 0.0])
+def test_chunk_kernel_matches_plain_on_card(cuda, t_len, dtype, k, nu):
+    """The chunk kernel against its plain version on the card, from step
+    2 (across the burn-in of 5) to a cap a quarter of the window before
+    its end: the state, presence and emission rows exactly equal."""
+    seed = t_len + 7 * k + int(nu)
+    table, st_k, u = _chunk_inputs(seed, k, dtype, t_len, cuda)
+    st_p = {name: v.clone() for name, v in st_k.items()}
+    nsteps = 2 + max(t_len - t_len // 4, 1)
+    pres_k = torch.zeros(GRID, dtype=torch.int32, device=cuda)
+    pres_p = torch.zeros_like(pres_k)
+    emit_k = _noise_emission(t_len, seed, cuda)
+    emit_p = _noise_emission(t_len, seed + 1, cuda)
+    _chunk_call(fc.fused_chunk, table, st_k, u, pres_k, nu, k, 2, nsteps,
+                emit_k)
+    _chunk_call(fc.fused_chunk_plain, table, st_p, u, pres_p, nu, k, 2,
+                nsteps, emit_p)
+    torch.cuda.synchronize()
+    for name in st_k:
+        assert torch.equal(st_k[name], st_p[name]), name
+    assert torch.equal(pres_k, pres_p)
+    assert torch.equal(emit_k[0], emit_p[0])
+    assert torch.equal(emit_k[1], emit_p[1])
+    if t_len > 4:
+        assert not st_k['alive'].any()    # past the cap nobody is alive
+
+
+def test_chunk_counters_count_card_launches_and_steps(cuda):
+    table, st, u = _chunk_inputs(3, 1, torch.float32, 12, cuda)
+    pres = torch.zeros(GRID, dtype=torch.int32, device=cuda)
+    fc.reset_launch_count()
+    for t0, t1 in ((0, 5), (5, 12), (12, 12)):
+        _chunk_call(fc.fused_chunk, table, st, u[t0:t1], pres, 1.0, 1, t0,
+                    400, None)
+    _chunk_call(fc.fused_chunk_plain, table, st, u, pres, 1.0, 1, 12, 400,
+                None)
+    assert fc.launch_count() == 2 and fc.steps_count() == 12
+
+
+def test_chunk_wrapper_rejects_mixed_devices(cuda):
+    table, st, u = _chunk_inputs(4, 1, torch.float32, 3, cuda)
+    with pytest.raises(ValueError, match='on'):
+        _chunk_call(fc.fused_chunk, table, st, u.cpu(),
+                    torch.zeros(GRID, dtype=torch.int32, device=cuda), 1.0,
+                    1, 0, 400, None)
 
 
 def test_simulator_card_matches_cpu(cuda, tmp_path):
@@ -187,9 +268,10 @@ def test_histogram_launch_counters_count_card_launches(cuda):
 
 def test_recorded_run_on_card_counts_equal_recount(cuda, tmp_path):
     """A small recorded run (the default budget) on the card: the counts
-    equal the recount of its ``_tracks.pkl``; kernel A ran every step,
-    kernel B every flush and kernel C the recount."""
-    from ssrs_tpu_torch.agents import simulate as tsim
+    equal the recount of its ``_tracks.pkl``; the chunk kernel ran once a
+    chunk (2000 agents x 512 steps is one uniform block) and covered every
+    step, the per-step kernel never, kernel B every flush and kernel C the
+    recount."""
     cfg = dict(run_name='wy_rec', sim_mode='uniform', sim_seed=11,
                region_width_km=(12., 10.), resolution=200.,
                track_count=2000, track_start_region=(1., 11., 1., 2.),
@@ -198,11 +280,14 @@ def test_recorded_run_on_card_counts_equal_recount(cuda, tmp_path):
     sim = ssrs_tpu_torch.Simulator(ssrs_tpu_torch.Config(**cfg),
                                    device=cuda)
     fs.reset_launch_count()
+    fc.reset_launch_count()
     ph.reset_launch_count()
     tsim.reset_flush_count()
     sim.simulate_tracks()
     rec = {r['phase']: r for r in sim.timer.records}['tracks']
-    assert rec['recorded'] and fs.launch_count() == rec['steps']
+    assert rec['recorded'] and fs.launch_count() == 0
+    assert fc.steps_count() == rec['steps']
+    assert fc.launch_count() == -(-rec['steps'] // 512)
     assert ph.launch_count('presence_histogram') == tsim.flush_count() >= 1
     counts_path = os.path.join(
         sim.mode_data_dir, 's10d270_d0_t75_fluidflow_r0_counts.npy')

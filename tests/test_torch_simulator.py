@@ -34,6 +34,7 @@ import torch
 import ssrs_tpu
 import ssrs_tpu_torch
 from ssrs_tpu.agents.presence import smooth_presence
+from ssrs_tpu_torch.agents import fused_chunk
 from ssrs_tpu_torch.agents.fused_step import launch_count, \
     reset_launch_count
 
@@ -68,11 +69,13 @@ def sims(tmp_path_factory):
             out_dir=str(root / 'jax'), **CONFIG))
         jax_sim.simulate_tracks()
     reset_launch_count()
+    fused_chunk.reset_launch_count()
     port = ssrs_tpu_torch.Simulator(ssrs_tpu_torch.Config(
         out_dir=str(root / 'port'), **CONFIG), device='cpu')
     port.simulate_tracks()
     port.compute_presence_map()
-    launches = launch_count()
+    # (per-step kernel, chunk kernel) launches
+    launches = (launch_count(), fused_chunk.launch_count())
     # a second port run whose cache holds the JAX package's potential
     shared = root / 'shared' / 'wy_test' / 'data' / 'uniform'
     shared.mkdir(parents=True)
@@ -148,8 +151,8 @@ def test_slice_artifacts(sims):
     assert summary.dtype == np.float32 and summary.max() == 1.0
     assert os.path.isfile(os.path.join(port.out_dir, 'wy_test',
                                        'phase_timings.json'))
-    # CPU tensors never launch the CUDA kernel
-    assert launches == 0
+    # CPU tensors never launch the CUDA kernels
+    assert launches == (0, 0)
 
 
 def test_port_imports_no_jax():
