@@ -353,7 +353,7 @@ def _emission(torch, t_len, fill, dev):
     """Emission rows filled with ``fill``, so that an unwritten row shows."""
     return (torch.full((t_len, N_AGENTS, 2), fill, dtype=torch.int16,
                        device=dev),
-            torch.full((t_len, N_AGENTS), fill % 2 == 1, dtype=torch.bool,
+            torch.full((t_len, N_AGENTS), fill > 0, dtype=torch.bool,
                        device=dev))
 
 
@@ -859,6 +859,29 @@ def _live_steps(before, after):
     return added - int(before.palive.sum()) + int(after.palive.sum())
 
 
+def _once_ms(torch, fn):
+    """(device ms, result) of one call to ``fn``, enqueued behind a GPU
+    sleep so that the CUDA events see the device work and not the host's
+    enqueue time (unless the enqueue outlasts the sleep)."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), out
+
+
+def _state_diff(torch, a, b):
+    """The first field in which two simulation states differ, or None."""
+    for name in ('pos_r', 'pos_c', 'mem', 'alive', 'palive', 'presence'):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            return name
+    return None if a.step == b.step else 'step'
+
+
 def _chunk_segments(torch, state0, whole, chunk, u):
     """The CHUNK_T steps of ``chunk`` again as launches of CHUNK_SEG
     steps, each timed on the device: [(first step, end, ms, live
@@ -868,19 +891,12 @@ def _chunk_segments(torch, state0, whole, chunk, u):
     for s0 in range(0, CHUNK_T, CHUNK_SEG):
         before = dataclasses.replace(st, presence=st.presence.clone(),
                                      palive=st.palive.clone())
-        torch.cuda.synchronize()
-        torch.cuda._sleep(4_000_000)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        st = chunk(st, u=u[s0:s0 + CHUNK_SEG], s0=s0)
-        e1.record()
-        torch.cuda.synchronize()
-        out.append((s0, st.step, e0.elapsed_time(e1),
-                    _live_steps(before, st)))
-    for name in ('pos_r', 'pos_c', 'mem', 'alive', 'palive', 'presence'):
-        if not torch.equal(getattr(st, name), getattr(whole, name)):
-            fail(f'main field: the chunk in segments differs in {name}')
+        ms, st = _once_ms(torch, lambda: chunk(st, u=u[s0:s0 + CHUNK_SEG],
+                                               s0=s0))
+        out.append((s0, st.step, ms, _live_steps(before, st)))
+    diff = _state_diff(torch, st, whole)
+    if diff:
+        fail(f'main field: the chunk in segments differs in {diff}')
     return out
 
 
@@ -889,10 +905,12 @@ def phase_chunk_main(torch, sim, device_name):
     updraft and cached potential) and starts: one CHUNK_T-step launch
     against CHUNK_T per-step launches and the plain version from the same
     state with the same uniforms (exactly equal states), both kernels
-    timed in turns (chunk, per-step, per-step, chunk); the uniform block
-    timed on its own; a warm track phase, plain and profiled, equal to the
-    run's counts; and the per-step driver (``simulate_presence``, the path
-    of the fused step kernel) at the same width."""
+    timed in turns (chunk, per-step, per-step, chunk), the chunk also in
+    launches of CHUNK_SEG steps and at the recorded run's width; the
+    uniform block timed on its own; a warm track phase, plain and
+    profiled, equal to the run's counts; and the per-step driver
+    (``simulate_presence``, the path of the fused step kernel) at the
+    same width."""
     from ssrs_tpu_torch.agents import get_starting_indices
     from ssrs_tpu_torch.agents.fused_chunk import (fused_chunk,
                                                    fused_chunk_plain)
@@ -939,16 +957,7 @@ def phase_chunk_main(torch, sim, device_name):
     for name in ('chunk', 'per_step', 'per_step', 'chunk'):
         fn = chunk if name == 'chunk' else per_step
         st = _fresh(torch, state0)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(4_000_000)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = fn(st)
-        e1.record()
-        runs.setdefault(name, out)
-        torch.cuda.synchronize()
-        dev_ms = e0.elapsed_time(e1)
+        dev_ms, runs[name] = _once_ms(torch, lambda: fn(st))
         st = _fresh(torch, state0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -956,25 +965,14 @@ def phase_chunk_main(torch, sim, device_name):
         torch.cuda.synchronize()
         times[name].append((dev_ms, (time.perf_counter() - t0) * 1e3))
     st = _fresh(torch, state0)
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    e0.record()
-    plain = chunk(st, fused_chunk_plain)
-    e1.record()
-    torch.cuda.synchronize()
-    plain_ms = (e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3)
+    plain_ms, runs['plain'] = _once_ms(
+        torch, lambda: chunk(st, fused_chunk_plain))
     got = runs['chunk']
     for other in ('per_step', 'plain'):
-        want = runs['per_step'] if other == 'per_step' else plain
-        for name in ('pos_r', 'pos_c', 'mem', 'alive', 'palive',
-                     'presence'):
-            if not torch.equal(getattr(got, name), getattr(want, name)):
-                fail(f'main field: the {CHUNK_T}-step chunk differs from '
-                     f'{CHUNK_T} {other} steps in {name}')
-        if got.step != want.step:
-            fail(f'main field: step {got.step} != {other} {want.step}')
+        diff = _state_diff(torch, got, runs[other])
+        if diff:
+            fail(f'main field: the {CHUNK_T}-step chunk differs from '
+                 f'{CHUNK_T} {other} steps in {diff}')
     live = _live_steps(state0, got)
     cells = int((got.presence > 0).sum())
     segments = _chunk_segments(torch, state0, got, chunk, u)
@@ -983,15 +981,8 @@ def phase_chunk_main(torch, sim, device_name):
     small0 = init_state(params, starts[:RECORDED_TRACKS], device=dev)
     st = _fresh(torch, small0)
     u_small = u[:, :RECORDED_TRACKS].contiguous()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(4_000_000)
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    st = chunk(st, u=u_small)
-    e1.record()
-    torch.cuda.synchronize()
-    small = (e0.elapsed_time(e1), _live_steps(small0, st))
+    small_ms, st = _once_ms(torch, lambda: chunk(st, u=u_small))
+    small = (small_ms, _live_steps(small0, st))
     bound_ms, bound_by = _chunk_bound(n, params.memory_k,
                                       9 * table.element_size(), live, cells)
     draw_ms = _device_ms(
@@ -1010,7 +1001,7 @@ def phase_chunk_main(torch, sim, device_name):
         f'{sk[0]:.3f} / {sw[0]:.3f} ms, per-step {sk[1]:.3f} / {sw[1]:.3f} '
         f'ms, chunk {ck[1]:.3f} / {cw[1]:.3f} ms (per-step device ms: CUDA '
         f'events around the enqueue, host gaps included); plain '
-        f'{plain_ms[0]:.1f} / {plain_ms[1]:.1f} ms; bound {bound_ms:.4f} ms '
+        f'{plain_ms:.1f} ms (the same); bound {bound_ms:.4f} ms '
         f'({bound_by}); uniform block ({CHUNK_T}, {n}) drawn in '
         f'{draw_ms:.3f} ms device on {device_name}')
     say(f'main field chunk in launches of {CHUNK_SEG} steps (device ms, '
@@ -1073,8 +1064,7 @@ def phase_chunk_main(torch, sim, device_name):
     return {
         'chunk_ms': float(np.median(ck)), 'chunk_wall_ms': cw,
         'chunk_device_ms': ck, 'per_step_device_ms': sk,
-        'per_step_wall_ms': sw, 'plain_ms': plain_ms[0],
-        'plain_wall_ms': plain_ms[1], 'bound_ms': bound_ms,
+        'per_step_wall_ms': sw, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
         'bound_by': bound_by, 'live_agent_steps': live, 'cells': cells,
         'segments': [{'steps': [a, b], 'ms': ms, 'live_agent_steps': n_live}
                      for a, b, ms, n_live in segments],

@@ -42,28 +42,22 @@ def reset_launch_count() -> None:
     _launches = 0
 
 
-def push_from_boundary(r: torch.Tensor, c: torch.Tensor, nrow: int,
-                       ncol: int):
-    """Burn-in boundary push (ssrs/movmodel.py:205-217). Note the
-    reference's asymmetry: rows pushed when <= 1, cols when <= 0."""
-    r = torch.where(r <= 1, r + 2, torch.where(r >= nrow - 2, r - 2, r))
-    c = torch.where(c <= 0, c + 2, torch.where(c >= ncol - 2, c - 2, c))
-    return r, c
-
-
 def alive_and_push(step: int, alive: torch.Tensor, r: torch.Tensor,
                    c: torch.Tensor, nrow: int, ncol: int, burnin: int,
                    nsteps: int):
     """Step ``step``'s alive flags and the cells its moves start from:
     nobody is alive from the cap on; after the burn-in an agent off the
-    interior dies; during it the move starts from the pushed cell. The
-    rule of one step, for the per-step and the chunk kernels' callers."""
+    interior dies; during it the move starts from the cell the burn-in
+    boundary push gives (ssrs/movmodel.py:205-217; note the reference's
+    asymmetry: rows pushed when <= 1, cols when <= 0). The rule of one
+    step, for the per-step and the chunk kernels' callers."""
     if step >= nsteps:
         return torch.zeros_like(alive), r, c
     if step > burnin:
         in_interior = (r > 0) & (r < nrow - 1) & (c > 0) & (c < ncol - 1)
         return alive & in_interior, r, c
-    pr, pc = push_from_boundary(r, c, nrow, ncol)
+    pr = torch.where(r <= 1, r + 2, torch.where(r >= nrow - 2, r - 2, r))
+    pc = torch.where(c <= 0, c + 2, torch.where(c >= ncol - 2, c - 2, c))
     return alive, pr, pc
 
 

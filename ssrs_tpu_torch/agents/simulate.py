@@ -490,8 +490,9 @@ def simulate_presence_compacting(params: TrackParams, start_rc,
 
     A Python loop over chunks of ``chunk`` steps (each one launch of the
     chunk kernel per ``UNIFORM_BLOCK`` uniforms, :func:`make_chunk_fn`)
-    reads the alive count once per chunk; whenever the live population falls below the current
-    bucket, the survivors are packed into the next {1,1.5}*2^k bucket.
+    reads the alive count once per chunk; whenever the live population
+    falls below the current bucket, the survivors are packed into the
+    next {1,1.5}*2^k bucket.
     ``tail_bucket`` sets the bucket below which no compaction happens
     (:func:`_norm_tail_bucket`). The run stops when every agent is dead
     or after ``params.nsteps`` steps. Deterministic for a fixed generator
@@ -556,11 +557,11 @@ def simulate_tracks_recorded(params: TrackParams, start_rc,
     ``chunk``, ``min_bucket``, bucket ladder and stable compaction, no
     tail bucket), whose chunk kernel also writes each step's new
     positions (int16) and alive flags into a per-chunk device buffer,
-    beside the id
-    vector that maps batch slots to agents; compaction permutes the ids
-    with the order it packs the agents by. The buffer comes to the host
-    in one copy per chunk, and the track builder (``ssrs_tpu_torch.native``)
-    appends each agent's alive prefix of the chunk to its trajectory. So
+    beside the id vector that maps batch slots to agents; compaction
+    permutes the ids with the order it packs the agents by. The buffer
+    comes to the host in one copy per chunk, and the track builder
+    (``ssrs_tpu_torch.native``) appends each agent's alive prefix of the
+    chunk to its trajectory. So
     the step cap can be the reference's ``(nrow/2)*(ncol/2)`` without a
     dense ``(cap, N, 2)`` array.
 
