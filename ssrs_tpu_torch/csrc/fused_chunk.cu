@@ -26,8 +26,9 @@
 // neither bound is reached. At 10k agents 512 steps take 0.48 ms, ~0.9
 // us a step: the dependent chain. At 100k they take 1.24-1.27 ms, ~26 ps
 // of device time per live agent-step in every 64-step window, the
-// crowded burn-in included: an issue cost per agent-step (most likely
-// the nine scalar, uncoalesced loads of a table row), not the atomics.
+// crowded burn-in included: a throughput cost per agent-step (most
+// likely the nine scalar, uncoalesced loads of a table row), not the
+// atomics.
 //
 // What the design does about it:
 // - one thread per agent, T steps in a loop inside the thread: agents
