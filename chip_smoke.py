@@ -105,9 +105,8 @@ CHUNK_CAP = CHUNK_S0 + 400
 CHUNK_SEG = 64
 # the drivers' chunk length (agents/simulate.py)
 DRIVER_CHUNK = 512
-# the card's published peaks (on-chip-measurement guide: NVIDIA's H100 SXM
-# data sheet, at 700 W): device-memory bytes/s and float32 operations/s
-# outside the tensor cores
+# the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
+# device-memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 
