@@ -9,15 +9,22 @@ It builds the port's CUDA kernels from the sources in the checkout (the
 chunk kernel, which runs a chunk of agent steps per launch for the
 compacting and the recording drivers; the fused agent step, which runs
 one step per launch for ``simulate_presence``; and the presence
-histograms: weighted for the flush, counting for the recount of recorded
-tracks), checks that nvcc kept the chunk kernel's memory ring out of
-local memory, holds each kernel against its plain PyTorch version on the
-card at the shapes its path gives it, and drives two runs of the
-README's region (500x600 cells at 100 m): the
+histograms: the flush of the delayed count, the weighted histogram that
+no path runs, and the count of the recorded tracks' recount, in its
+direct and its privatized kernel), checks nvcc's report (no stack frame
+or spills in the chunk kernel, no spills in the flush and count
+kernels), holds each kernel against its plain PyTorch version on the
+card at the shapes its path gives it (the flush and the count also on
+the paths' own inputs: the main field's state after one chunk, and the
+recorded run's ``.pkl`` points; the count on one hot cell, on a grid of
+twenty bands, and across numbers of points and grid sizes, where its
+plan switches kernels; each timed in turns with the kernel it replaced),
+and drives two runs of the README's region (500x600 cells at 100 m): the
 uniform-mode run of 100,000 tracks with the default potential solver
 (the refined solver, on the card), and the recorded-track run of 10,000
 tracks (the default track_pkl_budget) on the cached potential, which
-writes ``_tracks.pkl`` and must agree exactly with its own recount. It
+writes ``_tracks.pkl`` and must agree exactly with its own recount. On
+every path each flush is one launch of the flush kernel. It
 holds the main run's potential to the invariants of the reference's
 system, solves it twice more on the card (bitwise equal, one solve
 profiled), beside the host direct solve, and solves the 460x460 hard
@@ -28,8 +35,8 @@ uniform draw, profiles a warm track phase and drives the per-step
 driver. It checks small runs on the card, with and without recorded
 tracks, against the same runs through the plain versions on the CPU.
 Every phase prints one line; any failure exits non-zero. The last three
-lines are a JSON object with the solver's and the track engine's
-numbers, one with the kernels' numbers and the JSON status line
+lines are a JSON object with the solver's, the track engine's and the
+count's numbers, one with the kernels' numbers and the JSON status line
 ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits
@@ -63,10 +70,24 @@ MAIN_CONFIG = dict(
 # the recorded-track run: the largest run that records with the default
 # track_pkl_budget, in the main run's out_dir (its cached potential)
 RECORDED_TRACKS = 10_000
-# kernel B at the flush of the main path's first compaction; kernel C at
-# the recorded run's mass (10,000 tracks of ~630 moves)
+# the flush and kernel B at the main path's first compaction (100k
+# agents); kernel C at the recorded run's mass (10,000 tracks of ~630
+# moves)
 HIST_B_POINTS = 100_000
 HIST_C_POINTS = 6_400_000
+# kernel C's exactness cases: one hot cell, and a grid of twenty bands
+HOT_CELL = (321, 77)
+HOT_CELL_POINTS = 1_000_000
+BANDS_GRID = (1000, 1000)
+BANDS_POINTS = 3_000_000
+# kernel C's two kernels on 500x600 at these numbers of uniform points,
+# and on larger grids (bands) at the recorded run's mass: where the plan
+# switches
+SWEEP_POINTS = (300_000, 1_200_000, 3_000_000, 4_500_000, 7_500_000)
+SWEEP_GRIDS = ((600, 600), (640, 640), (700, 700), (1000, 1000))
+SWEEP_GRID_POINTS = 7_500_000
+# the new kernels of presence_hist.cu, as ptxas names them
+HIST_KERNELS = ('flush_kernel', 'band_count_kernel', 'sum_copies_kernel')
 # a small run (the tests' WY config) compared between card and CPU
 SMALL_CONFIG = dict(
     run_name='wy_small', sim_mode='uniform', sim_seed=11,
@@ -135,7 +156,9 @@ def phase_device(torch):
 
 def phase_build():
     """Build the CUDA kernels (nvcc) and the host track builder (g++), so
-    that the runs below time no build."""
+    that the runs below time no build. The ptxas report: no stack frame
+    or spills in the chunk kernel, no spills in the flush and count
+    kernels, whose registers and shared memory it prints."""
     from ssrs_tpu_torch import _build, native
     t0 = time.perf_counter()
     _build.load_library()
@@ -144,30 +167,42 @@ def phase_build():
     regs = [ln.strip() for ln in log.splitlines() if 'registers' in ln]
     say(f'build: {secs:.2f} s (nvcc {_build.build_info["seconds"]:.2f} s) '
         f'{_build.build_info["path"]}; ptxas: {" | ".join(regs)}')
-    frames = _ptxas_frames(log, 'fused_chunk_kernel')
+    report = _ptxas_report(log)
+    frames = {k: v['frame'] for k, v in report.items()
+              if 'fused_chunk_kernel' in k}
     if len(frames) != 2 or any(v != (0, 0, 0) for v in frames.values()):
         fail(f'chunk kernel: ptxas reports stack frame / spills {frames}')
     say('build: chunk kernel (f32, bf16): 0 bytes stack frame, 0 bytes '
         'spill stores, 0 bytes spill loads')
+    hist = {k: v for k, v in report.items()
+            if any(n in k for n in HIST_KERNELS)}
+    if len(hist) != 4 or any(v['frame'][1:] != (0, 0)
+                             for v in hist.values()):
+        fail(f'flush and count kernels: ptxas reports spills {hist}')
+    for k, v in sorted(hist.items()):
+        say(f'build: {k}: {v["frame"][0]} bytes stack frame, 0 bytes '
+            f'spill stores, 0 bytes spill loads; {v["used"]}')
     t0 = time.perf_counter()
     if not native.native_available():
         fail('the C++ track builder does not build (g++)')
     say(f'build: C++ track builder {time.perf_counter() - t0:.2f} s')
 
 
-def _ptxas_frames(log, name):
-    """{mangled kernel name: (stack frame, spill store, spill load bytes)}
-    from nvcc's ``-Xptxas -v`` report, for the kernels named ``name``."""
+def _ptxas_report(log):
+    """{mangled kernel name: {'frame': (stack frame, spill store, spill
+    load bytes), 'used': ptxas's registers and shared-memory line}} from
+    nvcc's ``-Xptxas -v`` report."""
     out, current = {}, None
     for line in log.splitlines():
         if 'Function properties for' in line:
             current = line.split('Function properties for')[1].strip()
+            out[current] = {'frame': None, 'used': ''}
         elif current and 'bytes stack frame' in line:
             nums = [int(w) for w in line.replace(',', ' ').split()
                     if w.isdigit()]
-            if name in current:
-                out[current] = tuple(nums[:3])
-            current = None
+            out[current]['frame'] = tuple(nums[:3])
+        elif current and 'Used' in line and 'registers' in line:
+            out[current]['used'] = line.split(':', 1)[1].strip()
     return out
 
 
@@ -451,8 +486,12 @@ def _scatter_indices(rng, n):
 
 
 def phase_hist(torch):
-    """Kernels B and C against their plain versions on the card at their
-    paths' shapes (exact), and their times."""
+    """The flush kernel, kernel B (the weighted histogram, which no path
+    runs since the flush has its own kernel) and kernel C against their
+    plain versions on the card at their paths' shapes (exact), and their
+    times; C also on one hot cell and on a grid of three bands (each of
+    its kernels exact), and its two kernels timed across numbers of
+    points and grid sizes, where its plan switches between them."""
     from ssrs_tpu_torch.agents import presence_hist as ph
     dev = torch.device('cuda')
     rng = np.random.default_rng(2027)
@@ -461,69 +500,216 @@ def phase_hist(torch):
     cb = torch.from_numpy(c.astype(np.int32)).to(dev)
     wb = torch.from_numpy(
         (rng.random(HIST_B_POINTS) < 0.6).astype(np.float32)).to(dev)
+    # the library yardstick: one index_put_ with accumulation into a new
+    # int32 map, on the in-range points' long indices and int32 values,
+    # made here and not timed (the weights are 0/1 integers)
+    r_in, c_in, sel = _in_range_long(torch, rb, cb, NROW, NCOL)
+    lib_b = (r_in, c_in, wb.to(torch.int32)[sel])
+
+    def kernel():
+        return ph.presence_histogram(rb, cb, wb, NROW, NCOL)
+
+    def plain():
+        return ph.presence_histogram_plain(rb, cb, wb, NROW, NCOL)
+
+    def library():
+        return _index_put_map(torch, *lib_b, (NROW, NCOL))
+
+    got, want, lib = kernel(), plain(), library()
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err or int(want.sum()) <= 0 or not torch.equal(lib, want):
+        fail(f'presence_histogram: differs from plain (max abs err {err}), '
+             'or the library call does')
+    tm = {'max_abs_err': err, 'ms': _device_ms(torch, kernel),
+          'plain_ms': _device_ms(torch, plain),
+          'library_ms': _device_ms(torch, library),
+          'host_ms': _host_ms(torch, kernel),
+          'plain_host_ms': _host_ms(torch, plain)}
+    # rows, cols, weights read once; the map written once
+    tm['bound_ms'], tm['bound_by'] = _bound(
+        HIST_B_POINTS * 12 + NROW * NCOL * 4, 0)
+    out = {'presence_histogram': tm}
+    say(f'presence_histogram (N={HIST_B_POINTS} 0/1 weights, {NROW}x{NCOL};'
+        f' no path runs it): exact match with plain; kernel '
+        f'{tm["ms"] * 1e3:.1f} us device / {tm["host_ms"] * 1e3:.1f} us '
+        f'wall; plain {tm["plain_ms"] * 1e3:.1f} us device / '
+        f'{tm["plain_host_ms"] * 1e3:.1f} us wall; library index_put_ '
+        f'{tm["library_ms"] * 1e3:.1f} us device; bound '
+        f'{tm["bound_ms"] * 1e3:.2f} us ({tm["bound_by"]})')
+    base = torch.from_numpy(
+        rng.integers(0, 50, (NROW, NCOL)).astype(np.int32)).to(dev)
+    out['presence_flush'] = _flush_case(
+        torch, rb, cb, wb > 0, base,
+        f'N={HIST_B_POINTS} synthetic, 60% pending')
+
     r, c = _scatter_indices(rng, HIST_C_POINTS)
     r[rng.random(HIST_C_POINTS) < 0.3] = -1
     rc = torch.from_numpy(r.astype(np.int16)).to(dev)
     cc = torch.from_numpy(c.astype(np.int16)).to(dev)
-    # the library yardsticks: one index_put_ with accumulation into a new
-    # int32 map, on the in-range points' long indices and int32 values,
-    # made here and not timed (the flush's weights are 0/1 integers)
-    r_in, c_in, sel = _in_range_long(torch, rb, cb)
-    lib_b = (r_in, c_in, wb.to(torch.int32)[sel])
-    r_in, c_in, _ = _in_range_long(torch, rc, cc)
-    lib_c = (r_in, c_in, torch.ones_like(r_in, dtype=torch.int32))
-    cases = {
-        'presence_histogram': (
-            lambda: ph.presence_histogram(rb, cb, wb, NROW, NCOL),
-            lambda: ph.presence_histogram_plain(rb, cb, wb, NROW, NCOL),
-            lambda: _index_put_map(torch, *lib_b),
-            f'N={HIST_B_POINTS} 0/1 weights',
-            # rows, cols, weights read once; the map written once
-            HIST_B_POINTS * 12 + NROW * NCOL * 4),
-        'presence_histogram_batch': (
-            lambda: ph.presence_histogram_batch(rc, cc, NROW, NCOL),
-            lambda: ph.presence_histogram_batch_plain(rc, cc, NROW, NCOL),
-            lambda: _index_put_map(torch, *lib_c),
-            f'M={HIST_C_POINTS} int16, 30% dead',
-            HIST_C_POINTS * 4 + NROW * NCOL * 4),
-    }
-    out = {}
-    for name, (kernel, plain, library, what, nbytes) in cases.items():
-        got, want, lib = kernel(), plain(), library()
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err or int(want.sum()) <= 0 or not torch.equal(lib, want):
-            fail(f'{name}: differs from plain (max abs err {err}), or the '
-                 'library call does')
-        tm = {'max_abs_err': err,
-              'ms': _device_ms(torch, kernel),
-              'plain_ms': _device_ms(torch, plain),
-              'library_ms': _device_ms(torch, library),
-              'host_ms': _host_ms(torch, kernel),
-              'plain_host_ms': _host_ms(torch, plain)}
-        tm['bound_ms'], tm['bound_by'] = _bound(nbytes, 0)
-        out[name] = tm
-        say(f'{name} ({what}, {NROW}x{NCOL}): exact match with plain; '
-            f'kernel {tm["ms"] * 1e3:.1f} us device / '
-            f'{tm["host_ms"] * 1e3:.1f} us wall; plain '
-            f'{tm["plain_ms"] * 1e3:.1f} us device / '
-            f'{tm["plain_host_ms"] * 1e3:.1f} us wall; library index_put_ '
-            f'{tm["library_ms"] * 1e3:.1f} us device; bound '
-            f'{tm["bound_ms"] * 1e3:.2f} us ({tm["bound_by"]})')
+    out['presence_histogram_batch'] = _count_case(
+        torch, rc, cc, (NROW, NCOL), f'M={HIST_C_POINTS} int16, 30% dead')
+    hot = np.empty((2, HOT_CELL_POINTS), np.int16)
+    hot[0], hot[1] = HOT_CELL
+    hot = torch.from_numpy(hot).to(dev)
+    out['count_hot_cell'] = _count_case(
+        torch, hot[0], hot[1], (NROW, NCOL),
+        f'M={HOT_CELL_POINTS} int16 in one cell', steps=10)
+    r = rng.integers(-1, BANDS_GRID[0], BANDS_POINTS).astype(np.int16)
+    c = rng.integers(0, BANDS_GRID[1], BANDS_POINTS).astype(np.int16)
+    out['count_bands'] = _count_case(
+        torch, torch.from_numpy(r).to(dev), torch.from_numpy(c).to(dev),
+        BANDS_GRID, f'M={BANDS_POINTS} int16 on twenty bands', steps=20)
+    sweep = []
+    for grid, m in [((NROW, NCOL), m) for m in SWEEP_POINTS] + \
+            [(g, SWEEP_GRID_POINTS) for g in SWEEP_GRIDS]:
+        r = torch.from_numpy(rng.integers(0, grid[0], m).astype(np.int16))
+        c = torch.from_numpy(rng.integers(0, grid[1], m).astype(np.int16))
+        case = _count_case(torch, r.to(dev), c.to(dev), grid,
+                           f'sweep: M={m} int16 uniform', steps=20)
+        sweep.append({'grid': list(grid), 'points': m, **case})
+    out['count_sweep'] = sweep
     return out
 
 
-def _in_range_long(torch, rows, cols):
+def _flush_case(torch, rows, cols, palive, base, what):
+    """The flush kernel on these pending points, into copies of the map
+    ``base``: exactly equal to its plain version and to the flush it
+    replaced (the weighted kernel with the flags as weights, added into
+    the map; its flags cleared into a new tensor); then both timed in
+    turns (flush, old, old, flush), beside the old weighted kernel alone,
+    the plain version, one index_put_ and the bound. Returns the times."""
+    from ssrs_tpu_torch.agents import presence_hist as ph
+    nrow, ncol = base.shape
+    maps = [base.clone() for _ in range(3)]
+    cleared = ph.presence_flush(rows, cols, palive, maps[0])
+    plain_flags = ph.presence_flush_plain(rows, cols, palive, maps[1])
+    maps[2].add_(ph.presence_histogram(rows, cols, palive.to(torch.float32),
+                                       nrow, ncol))
+    torch.cuda.synchronize()
+    err = int((maps[0].long() - maps[1].long()).abs().max())
+    if err or not torch.equal(maps[0], maps[2]) or cleared.any() or \
+            plain_flags.any() or torch.equal(maps[0], base):
+        fail(f'presence_flush ({what}): differs from plain (max abs err '
+             f'{err}) or from the weighted flush')
+    sel = _in_range_long(torch, rows, cols, nrow, ncol)[2] & palive
+    r_in, c_in = rows[sel].long(), cols[sel].long()
+    ones = torch.ones_like(r_in, dtype=torch.int32)
+    weights = palive.to(torch.float32)
+    work = base.clone()
+
+    def flush():
+        return ph.presence_flush(rows, cols, palive, work)
+
+    def old_flush():
+        work.add_(ph.presence_histogram(rows, cols, palive.to(torch.float32),
+                                        nrow, ncol))
+        return torch.zeros_like(palive)
+
+    turns = {'ms': [], 'old_ms': []}
+    for name, fn in (('ms', flush), ('old_ms', old_flush),
+                     ('old_ms', old_flush), ('ms', flush)):
+        turns[name].append(_device_ms(torch, fn))
+    tm = {'max_abs_err': err, 'ms': float(np.mean(turns['ms'])),
+          'ms_turns': turns['ms'], 'old_flush_ms': turns['old_ms'],
+          'old_kernel_ms': _device_ms(torch, lambda: ph.presence_histogram(
+              rows, cols, weights, nrow, ncol)),
+          'plain_ms': _device_ms(torch, lambda: ph.presence_flush_plain(
+              rows, cols, palive, work)),
+          'library_ms': _device_ms(torch, lambda: work.index_put_(
+              (r_in, c_in), ones, accumulate=True)),
+          'host_ms': _host_ms(torch, flush),
+          'old_flush_host_ms': _host_ms(torch, old_flush),
+          'points': rows.shape[0], 'pending': int(sel.sum())}
+    # rows, cols and flags read once, the cleared flags written once; each
+    # cell the flush counts read and written once
+    cells = int(torch.unique(r_in * ncol + c_in).numel())
+    tm['bound_ms'], tm['bound_by'] = _bound(rows.shape[0] * 10 + cells * 8,
+                                            0)
+    say(f'presence_flush ({what}, {nrow}x{ncol}, {tm["pending"]} pending '
+        f'in {cells} cells): exact match with plain and with the weighted '
+        f'flush; in turns flush {turns["ms"][0] * 1e3:.2f} us, old flush '
+        f'{turns["old_ms"][0] * 1e3:.2f} us, old flush '
+        f'{turns["old_ms"][1] * 1e3:.2f} us, flush '
+        f'{turns["ms"][1] * 1e3:.2f} us device (old weighted kernel alone '
+        f'{tm["old_kernel_ms"] * 1e3:.2f} us); wall: flush '
+        f'{tm["host_ms"] * 1e3:.1f} us, old flush '
+        f'{tm["old_flush_host_ms"] * 1e3:.1f} us; plain '
+        f'{tm["plain_ms"] * 1e3:.1f} us; library index_put_ '
+        f'{tm["library_ms"] * 1e3:.1f} us device; bound '
+        f'{tm["bound_ms"] * 1e3:.3f} us ({tm["bound_by"]})')
+    return tm
+
+
+def _count_case(torch, rows, cols, grid, what, steps=60):
+    """Kernel C on these points: the plan's kernel, and each kernel
+    forced (direct, privatized), exactly equal to the plain version and
+    to one index_put_; then both kernels timed in turns (direct,
+    privatized, privatized, direct), beside the plain version, the
+    library call and the bound. Returns the plan and the times; ``ms`` is
+    the plan's kernel's."""
+    from ssrs_tpu_torch.agents import presence_hist as ph
+    nrow, ncol = grid
+    m = rows.shape[0]
+    plan = ph._count_plan(nrow, ncol, m, ph._sms(rows.device.index))
+    plans = {'direct': plan._replace(kernel='direct'),
+             'privatized': plan._replace(kernel='privatized')}
+    want = ph.presence_histogram_batch_plain(rows, cols, nrow, ncol)
+    r_in, c_in, _ = _in_range_long(torch, rows, cols, nrow, ncol)
+    ones = torch.ones_like(r_in, dtype=torch.int32)
+    lib = _index_put_map(torch, r_in, c_in, ones, grid)
+    got = {name: ph.presence_histogram_batch(rows, cols, nrow, ncol, plan=p)
+           for name, p in [('plan', plan), *plans.items()]}
+    torch.cuda.synchronize()
+    err = max(int((g.long() - want.long()).abs().max()) for g in got.values())
+    if err or not torch.equal(lib, want) or int(want.sum()) <= 0:
+        fail(f'presence_histogram_batch ({what}): differs from plain (max '
+             f'abs err {err}), or the library call does')
+    turns = {name: [] for name in plans}
+    for name in ('direct', 'privatized', 'privatized', 'direct'):
+        turns[name].append(_device_ms(
+            torch, lambda: ph.presence_histogram_batch(
+                rows, cols, nrow, ncol, plan=plans[name]), steps=steps))
+    ms = {name: float(np.mean(t)) for name, t in turns.items()}
+    tm = {'max_abs_err': err, 'plan': plan._asdict(),
+          'ms': ms[plan.kernel], 'kernels_ms': turns,
+          'plain_ms': _device_ms(
+              torch, lambda: ph.presence_histogram_batch_plain(
+                  rows, cols, nrow, ncol), steps=steps),
+          'library_ms': _device_ms(torch, lambda: _index_put_map(
+              torch, r_in, c_in, ones, grid), steps=steps),
+          'host_ms': _host_ms(torch, lambda: ph.presence_histogram_batch(
+              rows, cols, nrow, ncol), steps=20),
+          'points': m, 'in_grid': int(r_in.numel()),
+          'cells_hit': int((want > 0).sum())}
+    # the points read once, the map written once
+    tm['bound_ms'], tm['bound_by'] = _bound(
+        m * 2 * rows.element_size() + nrow * ncol * 4, 0)
+    say(f'presence_histogram_batch ({what}, {nrow}x{ncol}, {tm["in_grid"]} '
+        f'in the grid, {tm["cells_hit"]} cells hit; plan {plan.kernel}, '
+        f'{plan.bands} bands x {plan.shares} shares): both kernels exact; in '
+        f'turns (us device) direct {turns["direct"][0] * 1e3:.1f} / '
+        f'{turns["direct"][1] * 1e3:.1f}, privatized '
+        f'{turns["privatized"][0] * 1e3:.1f} / '
+        f'{turns["privatized"][1] * 1e3:.1f}; plan\'s kernel '
+        f'{tm["host_ms"] * 1e3:.1f} us wall; plain '
+        f'{tm["plain_ms"] * 1e3:.1f} us; library index_put_ '
+        f'{tm["library_ms"] * 1e3:.1f} us; bound {tm["bound_ms"] * 1e3:.2f} '
+        f'us ({tm["bound_by"]})')
+    return tm
+
+
+def _in_range_long(torch, rows, cols, nrow, ncol):
     """(rows, cols) of the in-grid points as int64, and the in-grid mask."""
     r, c = rows.long(), cols.long()
-    sel = (r >= 0) & (r < NROW) & (c >= 0) & (c < NCOL)
+    sel = (r >= 0) & (r < nrow) & (c >= 0) & (c < ncol)
     return r[sel], c[sel], sel
 
 
-def _index_put_map(torch, r, c, values):
+def _index_put_map(torch, r, c, values, grid):
     """The library yardstick of a presence histogram: one accumulating
     index_put_ into a new int32 map."""
-    out = torch.zeros((NROW, NCOL), dtype=torch.int32, device=r.device)
+    out = torch.zeros(grid, dtype=torch.int32, device=r.device)
     return out.index_put_((r, c), values, accumulate=True)
 
 
@@ -542,6 +728,7 @@ def _read_counts():
     return {'fused_step': fused_step.launch_count(),
             'fused_chunk': fused_chunk.launch_count(),
             'fused_chunk_steps': fused_chunk.steps_count(),
+            'presence_flush': presence_hist.launch_count('presence_flush'),
             'presence_histogram':
                 presence_hist.launch_count('presence_histogram'),
             'presence_histogram_batch':
@@ -563,10 +750,7 @@ def phase_main(torch, device_name, out):
     records = {r['phase']: r for r in sim.timer.records}
     steps = records['tracks']['steps']
     _check_chunk_launches('main path', launched, steps)
-    if launched['presence_histogram'] != launched['flushes'] or \
-            launched['flushes'] < 1:
-        fail(f'main path: {launched["presence_histogram"]} histogram '
-             f'launches for {launched["flushes"]} flushes')
+    _check_flush_launches('main path', launched)
     counts = sim.get_presence_counts(sim.case_ids[0], 0)
     if counts.shape != (NROW, NCOL) or not np.isfinite(counts).all() \
             or counts.min() < 0:
@@ -590,7 +774,7 @@ def phase_main(torch, device_name, out):
         f'launches covering {launched["fused_chunk_steps"]} steps, '
         f'{launched["fused_step"]} per-step launches, '
         f'{launched["flushes"]} flushes through '
-        f'{launched["presence_histogram"]} histogram launches, {useful} '
+        f'{launched["presence_flush"]} flush kernel launches, {useful} '
         f'agent-steps in {tracks_s:.3f} s = {useful / tracks_s:.4g} '
         f'agent-steps/s on {device_name}')
     return launched, sim
@@ -607,6 +791,17 @@ def _check_chunk_launches(label, launched, steps):
              f'{launched["fused_chunk_steps"]} steps and '
              f'{launched["fused_step"]} per-step launches, for {steps} '
              f'steps in {chunks} chunks')
+
+
+def _check_flush_launches(label, launched, flushes=None):
+    """Every flush is one launch of the flush kernel, and the weighted
+    histogram runs on no path."""
+    if launched['presence_flush'] != launched['flushes'] or \
+            launched['flushes'] < 1 or launched['presence_histogram'] or \
+            flushes not in (None, launched['flushes']):
+        fail(f'{label}: {launched["presence_flush"]} flush kernel launches '
+             f'and {launched["presence_histogram"]} weighted histogram '
+             f'launches for {launched["flushes"]} flushes')
 
 
 def _check_tracks(tracks, starts, nrow, ncol, burnin, cap):
@@ -653,6 +848,7 @@ def phase_recorded(torch, device_name, out):
     potential comes from the cache."""
     from ssrs_tpu_torch import Config, Simulator
     from ssrs_tpu_torch.agents import get_starting_indices
+    from ssrs_tpu_torch.agents.presence import track_points
     from ssrs_tpu_torch.agents.presence_hist import presence_histogram_batch
     cfg = Config(out_dir=out, **{**MAIN_CONFIG,
                                  'track_count': RECORDED_TRACKS})
@@ -666,10 +862,7 @@ def phase_recorded(torch, device_name, out):
     rec = records['tracks']
     steps = rec['steps']
     _check_chunk_launches('recorded run', launched, steps)
-    if launched['presence_histogram'] != launched['flushes'] or \
-            launched['flushes'] < 1:
-        fail(f'recorded run: {launched["presence_histogram"]} histogram '
-             f'launches for {launched["flushes"]} flushes')
+    _check_flush_launches('recorded run', launched)
     if 'potential' not in records or records['potential']['seconds'] > 1. \
             or records['potential']['solver'] != 'cache':
         fail('recorded run: the potential was not read from the cache')
@@ -702,18 +895,21 @@ def phase_recorded(torch, device_name, out):
     recounted = _read_counts()
     if recounted['presence_histogram_batch'] != 1 or \
             recounted['fused_step'] or recounted['fused_chunk'] or \
-            recounted['presence_histogram']:
+            recounted['presence_histogram'] or recounted['presence_flush']:
         fail(f'recorded run: the pkl fallback launched {recounted}, not '
              'the count kernel once')
     launched['presence_histogram_batch'] = \
         recounted['presence_histogram_batch']
     # the int32 recount of the .pkl through kernel C, cell for cell (after
-    # the counts are read: this launch is the smoke's, not the path's)
-    pts = torch.from_numpy(np.ascontiguousarray(
-        np.concatenate(tracks).T)).to(sim.device)
-    recount = presence_histogram_batch(pts[0], pts[1], NROW, NCOL)
+    # the counts are read: these launches are the smoke's, not the path's),
+    # on the planes the path lays out; each kernel timed on them
+    rows_pkl, cols_pkl = track_points(tracks, sim.device)
+    recount = presence_histogram_batch(rows_pkl, cols_pkl, NROW, NCOL)
     if not np.array_equal(recount.cpu().numpy(), counts):
         fail('recorded run: _counts.npy differs from the recount of the pkl')
+    count_real = _count_case(
+        torch, rows_pkl, cols_pkl, (NROW, NCOL),
+        f'the recorded run\'s .pkl, {len(tracks)} tracks')
     if fallback.dtype != np.int16 or \
             not np.array_equal(fallback, counts.astype(np.int16)):
         fail('recorded run: get_presence_counts without _counts.npy is not '
@@ -727,7 +923,7 @@ def phase_recorded(torch, device_name, out):
         f'{rec["build_seconds"]:.3f} s (C++), .pkl write '
         f'{records["write_tracks"]["seconds"]:.3f} s; exact: tracks, '
         'counts = recount, int16 fallback')
-    return launched
+    return launched, count_real
 
 
 def _timed_solve(torch, cond, dirn, tol=1e-7):
@@ -975,6 +1171,10 @@ def phase_chunk_main(torch, sim, device_name):
     live = _live_steps(state0, got)
     cells = int((got.presence > 0).sum())
     segments = _chunk_segments(torch, state0, got, chunk, u)
+    # the flush of that state: what the driver's first compaction flushes
+    flush_real = _flush_case(torch, got.pos_r, got.pos_c, got.palive,
+                             got.presence,
+                             f'the main field after {CHUNK_T} steps')
     # the recorded run's width: the first RECORDED_TRACKS starts, one
     # launch of CHUNK_T steps
     small0 = init_state(params, starts[:RECORDED_TRACKS], device=dev)
@@ -1050,10 +1250,9 @@ def phase_chunk_main(torch, sim, device_name):
     ps_s = time.perf_counter() - t0
     per_step_path = _read_counts()
     mass = int(presence.sum())
+    _check_flush_launches('per-step driver', per_step_path, flushes=1)
     if per_step_path['fused_step'] != ps_steps or \
-            per_step_path['fused_chunk'] or \
-            per_step_path['presence_histogram'] != 1 or \
-            mass < n * (params.burnin + 1):
+            per_step_path['fused_chunk'] or mass < n * (params.burnin + 1):
         fail(f'per-step driver: {per_step_path} for {ps_steps} steps, mass '
              f'{mass}')
     say(f'per-step driver (simulate_presence, {n} agents): {ps_steps} steps '
@@ -1076,6 +1275,7 @@ def phase_chunk_main(torch, sim, device_name):
         'busy_share': device_ms / (prof_s * 1e3),
         'per_step_driver': {'steps': ps_steps, 'seconds': ps_s,
                             'agent_steps': mass - n},
+        'flush_real': flush_real,
         'per_step_path_launches': per_step_path}
 
 
@@ -1138,11 +1338,13 @@ def main() -> int:
         main_run, sim = phase_main(torch, name, out)
         solver = phase_solver(torch, sim, name)
         engine = phase_chunk_main(torch, sim, name)
-        recorded = phase_recorded(torch, name, out)
+        recorded, count_real = phase_recorded(torch, name, out)
     phase_small(torch)
     if any(m for m in sys.modules if m.split('.')[0] in ('jax', 'ssrs_tpu')):
         fail('JAX or ssrs_tpu was imported')
     bf16, f32 = timing['bfloat16'], timing['float32']
+    flush_real, flush_syn = engine['flush_real'], hist['presence_flush']
+    count_syn = hist['presence_histogram_batch']
     kernels = [{
         'name': 'fused_step', 'route': 'cuda',
         'source': 'ssrs_tpu_torch/csrc/fused_step.cu',
@@ -1163,33 +1365,66 @@ def main() -> int:
         'plain_ms': engine['plain_ms'], 'bound_ms': engine['bound_ms'],
         'bound_by': engine['bound_by'], 'library_ms': None,
         'steps': CHUNK_T, 'per_step_ms': engine['per_step_device_ms'],
-        'uniform_draw_ms': engine['uniform_draw_ms']}]
-    for name_k, line, path, launches in (
-            ('presence_histogram', 31, 'uniform run (flush_pending)',
-             main_run['presence_histogram']),
-            ('presence_histogram_batch', 59,
-             "get_presence_counts' .pkl fallback",
-             recorded['presence_histogram_batch'])):
-        tm = hist[name_k]
-        kernels.append({
-            'name': name_k, 'route': 'cuda',
-            'source': 'ssrs_tpu_torch/csrc/presence_hist.cu',
-            'replaces': f'ssrs_tpu/agents/pallas_hist.py:{line}',
-            'path': path, 'launches': launches,
-            'max_abs_err': tm['max_abs_err'], 'ms': tm['ms'],
-            'plain_ms': tm['plain_ms'], 'bound_ms': tm['bound_ms'],
-            'bound_by': tm['bound_by'], 'library_ms': tm['library_ms']})
+        'uniform_draw_ms': engine['uniform_draw_ms']}, {
+        # times on the main field's state after one chunk; beside them the
+        # 100k synthetic points and the flush it replaced
+        'name': 'presence_flush', 'route': 'cuda',
+        'source': 'ssrs_tpu_torch/csrc/presence_hist.cu',
+        'replaces': 'ssrs_tpu/agents/pallas_hist.py:31',
+        'computes': 'ssrs_tpu/agents/simulate.py:341 (flush_pending)',
+        'path': 'uniform run (flush_pending)',
+        'launches': main_run['presence_flush'],
+        'max_abs_err': max(flush_real['max_abs_err'],
+                           flush_syn['max_abs_err']),
+        'ms': flush_real['ms'], 'plain_ms': flush_real['plain_ms'],
+        'bound_ms': flush_real['bound_ms'],
+        'bound_by': flush_real['bound_by'],
+        'library_ms': flush_real['library_ms'],
+        'host_ms': flush_real['host_ms'],
+        'old_flush_ms': flush_real['old_flush_ms'],
+        'old_flush_host_ms': flush_real['old_flush_host_ms'],
+        'old_kernel_ms': flush_real['old_kernel_ms'],
+        'synthetic': flush_syn}, {
+        'name': 'presence_histogram', 'route': 'cuda',
+        'source': 'ssrs_tpu_torch/csrc/presence_hist.cu',
+        'replaces': 'ssrs_tpu/agents/pallas_hist.py:31',
+        'path': None,
+        'launches': main_run['presence_histogram'],
+        **{k: hist['presence_histogram'][k] for k in (
+            'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+            'library_ms')}}, {
+        # times on the recorded run's own .pkl points; beside them the
+        # 6.4M synthetic points, each kernel in turns
+        'name': 'presence_histogram_batch', 'route': 'cuda',
+        'source': 'ssrs_tpu_torch/csrc/presence_hist.cu',
+        'replaces': 'ssrs_tpu/agents/pallas_hist.py:59',
+        'path': "get_presence_counts' .pkl fallback",
+        'launches': recorded['presence_histogram_batch'],
+        'max_abs_err': max(count_real['max_abs_err'],
+                           count_syn['max_abs_err']),
+        **{k: count_real[k] for k in (
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'plan',
+            'kernels_ms', 'host_ms')},
+        'synthetic': {k: count_syn[k] for k in (
+            'ms', 'plain_ms', 'bound_ms', 'library_ms', 'plan',
+            'kernels_ms')}}]
     for k in kernels:
         # launches: the run of the kernel's own path (above), counted from
         # 0 just before it; beside it the 100,000-track uniform run and the
         # 10,000-track recorded run, each counted from 0 just before it
         k['launches_uniform_run'] = main_run[k['name']]
         k['launches_recorded_run'] = recorded[k['name']]
-        if k['launches'] < 1:
+        # the weighted histogram is a standalone kernel, as in ssrs_tpu:
+        # no path runs it since the flush has its own kernel (phase_hist
+        # holds it against its plain version all the same)
+        if k['launches'] < 1 and k['name'] != 'presence_histogram':
             fail(f'{k["name"]}: not launched on its path')
     engine = {key: v for key, v in engine.items()
-              if key != 'per_step_path_launches'}
-    print(json.dumps({'solver': solver, 'engine': engine}), flush=True)
+              if key not in ('per_step_path_launches', 'flush_real')}
+    count = {key: hist[key] for key in ('count_hot_cell', 'count_bands',
+                                        'count_sweep')}
+    print(json.dumps({'solver': solver, 'engine': engine, 'count': count}),
+          flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

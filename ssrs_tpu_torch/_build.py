@@ -106,6 +106,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         # rows cols out, n nrow ncol, stream
         fn.argtypes = [ptr] * 3 + [i64, i32, i32, ptr]
         fn.restype = i32
+    # rows cols palive presence cleared, n nrow ncol, stream
+    lib.ssrs_presence_flush.argtypes = [ptr] * 5 + [i64, i32, i32, ptr]
+    lib.ssrs_presence_flush.restype = i32
+    # rows cols scratch out, n nrow ncol elem_bytes bands shares band,
+    # stream
+    lib.ssrs_presence_count_bands.argtypes = [ptr] * 4 + [i64] + \
+        [i32] * 6 + [ptr]
+    lib.ssrs_presence_count_bands.restype = i32
 
 
 @functools.lru_cache(maxsize=None)

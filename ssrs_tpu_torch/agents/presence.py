@@ -45,34 +45,64 @@ def smooth_presence(count_mat: torch.Tensor, krad: int) -> torch.Tensor:
     return out[0, 0]
 
 
-def compute_presence_counts(tracks: List[np.ndarray],
-                            gridshape: Tuple[int, int],
-                            device=None) -> np.ndarray:
-    """Visits per cell over a list of ``(len, 2)`` (row, col)
-    trajectories, as a numpy int16 ``(nrow, ncol)`` map.
+def card_or_raise(device, caller: str) -> torch.device:
+    """``device`` as a torch device; a CUDA device that is not there
+    raises."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'{caller}(device=cuda): no CUDA device is available; pass '
+            "device='cpu' explicitly to run the plain PyTorch versions")
+    return device
 
-    The tracks are concatenated and counted on ``device`` (the CPU when
-    None) by :func:`presence_histogram_batch`. The int32 counts are cast
-    to int16 as the JAX package casts its int64 ones: a cell above 32767
-    visits wraps the same way, since both casts keep the low 16 bits.
-    """
-    nrow, ncol = int(gridshape[0]), int(gridshape[1])
+
+def track_points(tracks: List[np.ndarray], device):
+    """The ``(rows, cols)`` planes of a list of ``(len, 2)`` trajectories,
+    concatenated, int16 (int32 unless every track is int16), on
+    ``device``. Both planes start on a 16-byte boundary (the row plane is
+    padded to a multiple of 8 points), so the count kernel reads them 16
+    bytes at a time."""
     if tracks:
         pts = np.concatenate([np.asarray(t).reshape(-1, 2) for t in tracks])
     else:
         pts = np.zeros((0, 2), np.int16)
     if pts.dtype != np.int16:
         pts = pts.astype(np.int32)
-    pts = torch.from_numpy(np.ascontiguousarray(pts.T)).to(device)
-    counts = presence_histogram_batch(pts[0], pts[1], nrow, ncol)
+    m = pts.shape[0]
+    planes = np.empty((2, -(-m // 8) * 8), pts.dtype)
+    planes[:, :m] = pts.T
+    planes = torch.from_numpy(planes).to(device)
+    return planes[0, :m], planes[1, :m]
+
+
+def compute_presence_counts(tracks: List[np.ndarray],
+                            gridshape: Tuple[int, int],
+                            device='cuda') -> np.ndarray:
+    """Visits per cell over a list of ``(len, 2)`` (row, col)
+    trajectories, as a numpy int16 ``(nrow, ncol)`` map.
+
+    The tracks are concatenated and counted on ``device`` (the card by
+    default, which raises where there is none; ``'cpu'`` runs the plain
+    version) by :func:`presence_histogram_batch`. The int32 counts are
+    cast to int16 as the JAX package casts its int64 ones: a cell above
+    32767 visits wraps the same way, since both casts keep the low 16
+    bits.
+    """
+    device = card_or_raise(device, 'compute_presence_counts')
+    rows, cols = track_points(tracks, device)
+    counts = presence_histogram_batch(rows, cols, int(gridshape[0]),
+                                      int(gridshape[1]))
     return counts.cpu().numpy().astype(np.int16)
 
 
 def compute_smooth_presence_counts(tracks: List[np.ndarray],
                                    gridshape: Tuple[int, int],
-                                   radius: float, device=None) -> np.ndarray:
+                                   radius: float,
+                                   device='cuda') -> np.ndarray:
     """The smoothed count map of a list of trajectories, float32
-    (ssrs/movmodel.py:422-439)."""
+    (ssrs/movmodel.py:422-439), on ``device`` as
+    :func:`compute_presence_counts`."""
+    device = card_or_raise(device, 'compute_smooth_presence_counts')
     counts = compute_presence_counts(tracks, gridshape, device=device)
     out = smooth_presence(torch.from_numpy(counts).to(device), int(radius))
     return out.cpu().numpy().astype(np.float32)

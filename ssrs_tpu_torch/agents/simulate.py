@@ -27,8 +27,8 @@ fused step kernel (``agents/fused_step.py``):
 Presence accumulation is DELAYED BY ONE STEP, as in the JAX package: step
 t counts the *carried* position with the previous step's alive flag
 (``palive``), and :func:`flush_pending` adds the pending positions, through
-the presence histogram kernel (``agents/presence_hist.py``), before every
-compaction and at the end. The counted multiset of (position, alive)
+the flush kernel (``agents/presence_hist.py``), before every compaction
+and at the end. The counted multiset of (position, alive)
 pairs equals counting each new position at once.
 
 The step counter ``SimState.step`` is a host integer: the compacting loop
@@ -51,7 +51,7 @@ from .fused_chunk import MAX_MEMORY_K, fused_chunk
 from .fused_step import alive_and_push, fused_step
 from .moves import (CENTER_ZERO, NEIGHBOR_DELTAS, NEIGHBOR_NORMS_INV,
                     directional_probs, restriction_table)
-from .presence_hist import presence_histogram
+from .presence_hist import presence_flush
 
 
 class TrackParams(NamedTuple):
@@ -227,7 +227,7 @@ def state_from_numpy(params: TrackParams, pos_r, pos_c, mem, alive, palive,
 
 
 # flushes since the last reset_flush_count(); a flush on the card launches
-# presence_histogram once
+# presence_flush once
 _flushes = 0
 
 
@@ -244,17 +244,16 @@ def reset_flush_count() -> None:
 def flush_pending(state: SimState) -> SimState:
     """Add the pending delayed-presence contribution (the carried
     positions weighted by ``palive``) into ``state.presence`` in place,
-    through the presence histogram kernel (``agents/presence_hist.py``),
-    and clear ``palive`` so later steps cannot count it twice. Call at
-    the end of a run and before any compaction of the agent axis."""
+    through one launch of the flush kernel (``agents/presence_hist.py``),
+    and give the state a new, cleared ``palive`` so later steps cannot
+    count it twice (the old one may be ``state.alive`` itself, and stays
+    as it is). Call at the end of a run and before any compaction of the
+    agent axis."""
     global _flushes
-    nrow, ncol = state.presence.shape
-    state.presence.add_(presence_histogram(
-        state.pos_r, state.pos_c, state.palive.to(torch.float32), nrow,
-        ncol))
+    palive = presence_flush(state.pos_r, state.pos_c, state.palive,
+                            state.presence)
     _flushes += 1
-    return dataclasses.replace(state,
-                               palive=torch.zeros_like(state.palive))
+    return dataclasses.replace(state, palive=palive)
 
 
 def make_step_fn(params: TrackParams, base_flat: torch.Tensor,

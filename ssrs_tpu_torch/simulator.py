@@ -32,7 +32,8 @@ from .config import Config
 from .core.grid import Grid
 from .core.rng import case_generator
 from .core.timing import PhaseTimer, elapsed_str
-from .agents.presence import compute_presence_counts, smooth_presence
+from .agents.presence import (card_or_raise, compute_presence_counts,
+                              smooth_presence)
 from .agents.simulate import (TrackParams, simulate_presence_compacting,
                               simulate_tracks_recorded)
 from .agents.starts import get_starting_indices
@@ -97,11 +98,7 @@ class Simulator(Config):
 
     def __init__(self, in_config: Config = None, device='cuda',
                  **kwargs) -> None:
-        device = torch.device(device)
-        if device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError(
-                'Simulator(device=cuda): no CUDA device is available; pass '
-                "device='cpu' explicitly to run the plain PyTorch versions")
+        device = card_or_raise(device, 'Simulator')
         if in_config is None:
             super().__init__(**kwargs)
         else:

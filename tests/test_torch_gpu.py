@@ -233,23 +233,121 @@ def test_weighted_histogram_matches_plain_on_card(cuda, grid, n):
             r, c, w, nrow, ncol))
 
 
+def _plans(nrow, ncol, m):
+    """The plan's own choice, and each count kernel forced."""
+    plan = ph._count_plan(nrow, ncol, m,
+                          torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    return {'plan': plan, 'direct': plan._replace(kernel='direct'),
+            'privatized': plan._replace(kernel='privatized')}
+
+
+@pytest.mark.parametrize('kernel', ['plan', 'direct', 'privatized'])
 @pytest.mark.parametrize('dtype', [torch.int16, torch.int32])
 @pytest.mark.parametrize('grid', [(96, 130), (7, 5), (500, 600)])
-@pytest.mark.parametrize('n', [0, 700, 1_000_000])
-def test_count_histogram_matches_plain_on_card(cuda, grid, n, dtype):
+@pytest.mark.parametrize('n', [0, 700, 1_000_000, 7_500_000])
+def test_count_histogram_matches_plain_on_card(cuda, grid, n, dtype,
+                                               kernel):
     """Kernel C against its plain version on the card, with dead points
-    (row -1, arbitrary columns): exact."""
+    (row -1, arbitrary columns): exact, for the plan's kernel and each
+    kernel forced; the planes laid out as the recount lays them
+    (16-byte aligned) and, for the privatized kernel, also not."""
     nrow, ncol = grid
     rng = np.random.default_rng(n + ncol)
     r = _hist_indices(rng, n, nrow)
     c = _hist_indices(rng, n, ncol)
     r[rng.random(n) < 0.3] = -1
-    r, c = (torch.from_numpy(x).to(dtype).to(cuda) for x in (r, c))
-    got = ph.presence_histogram_batch(r, c, nrow, ncol)
-    want = ph.presence_histogram_batch_plain(r, c, nrow, ncol)
+    plan = _plans(nrow, ncol, n)[kernel]
+    pts = torch.from_numpy(np.stack([r, c])).to(dtype).to(cuda)
+    layouts = [(pts[0], pts[1])]
+    if kernel != 'direct':
+        odd = torch.from_numpy(np.stack([r, c])[:, 1:]).to(dtype).to(cuda)
+        layouts += [(pts[0][1:].contiguous(), odd[1].contiguous()),
+                    (odd[0], odd[1])]
+    for rows, cols in layouts:
+        got = ph.presence_histogram_batch(rows, cols, nrow, ncol, plan=plan)
+        want = ph.presence_histogram_batch_plain(rows, cols, nrow, ncol)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and tuple(got.shape) == grid
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('kernel', ['direct', 'privatized'])
+@pytest.mark.parametrize('dtype', [torch.int16, torch.int32])
+@pytest.mark.parametrize('case', ['hot_cell', 'bands'])
+def test_count_histogram_hot_cell_and_bands_on_card(cuda, case, dtype,
+                                                    kernel):
+    """Kernel C, exact: 1M points in one cell (with 1000 elsewhere), and
+    3M points on 1000x1000, which the privatized count covers in twenty
+    bands."""
+    rng = np.random.default_rng(5)
+    if case == 'hot_cell':
+        nrow, ncol, m = 500, 600, 1_001_000
+        r = np.full(m, 321)
+        c = np.full(m, 77)
+        r[:1000] = rng.integers(-1, nrow, 1000)
+        c[:1000] = rng.integers(0, ncol, 1000)
+    else:
+        nrow, ncol, m = 1000, 1000, 3_000_000
+        r = _hist_indices(rng, m, nrow)
+        c = _hist_indices(rng, m, ncol)
+    plan = _plans(nrow, ncol, m)[kernel]
+    assert plan.bands == (6 if case == 'hot_cell' else 20)
+    pts = torch.from_numpy(np.stack([r, c])).to(dtype).to(cuda)
+    got = ph.presence_histogram_batch(pts[0], pts[1], nrow, ncol, plan=plan)
+    want = ph.presence_histogram_batch_plain(pts[0], pts[1], nrow, ncol)
     torch.cuda.synchronize()
-    assert got.dtype == torch.int32 and tuple(got.shape) == grid
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('pending', ['random', 'none', 'all', 'alive'])
+@pytest.mark.parametrize('grid', [(7, 5), (500, 600)])
+@pytest.mark.parametrize('n', [0, 700, 100_000])
+def test_flush_matches_plain_on_card(cuda, grid, n, pending):
+    """The flush kernel against its plain version on the card: the map
+    (with counts already in it) exact, the flags returned cleared as a new
+    tensor, and ``palive`` (here possibly ``alive`` itself) untouched."""
+    nrow, ncol = grid
+    rng = np.random.default_rng(n + nrow)
+    r = torch.from_numpy(_hist_indices(rng, n, nrow).astype(np.int32))
+    c = torch.from_numpy(_hist_indices(rng, n, ncol).astype(np.int32))
+    flags = {'random': rng.random(n) < 0.6, 'none': np.zeros(n, bool),
+             'all': np.ones(n, bool), 'alive': rng.random(n) < 0.9}[pending]
+    palive = torch.from_numpy(flags).to(cuda)
+    before = palive.clone()
+    start = torch.from_numpy(rng.integers(0, 9, grid).astype(np.int32))
+    maps = [start.to(cuda), start.to(cuda)]
+    got = ph.presence_flush(r.to(cuda), c.to(cuda), palive, maps[0])
+    want = ph.presence_flush_plain(r.to(cuda), c.to(cuda), palive, maps[1])
+    torch.cuda.synchronize()
+    assert torch.equal(maps[0], maps[1])
+    assert got.dtype == torch.bool and got.shape == (n,) and not got.any()
+    assert got.data_ptr() != palive.data_ptr() or n == 0
+    assert torch.equal(palive, before) and torch.equal(want, got)
+
+
+def test_flush_pending_is_one_flush_launch(cuda):
+    """flush_pending on the card: one launch of the flush kernel and none
+    of the weighted histogram, the map equal to the CPU's."""
+    rng = np.random.default_rng(3)
+    nrow, ncol = GRID
+    params = tsim.TrackParams(grid_shape=GRID, move_dirn=0., nu=1.,
+                              memory_k=1, burnin=2, nsteps=50)
+    starts = np.stack([rng.integers(0, nrow, N), rng.integers(0, ncol, N)],
+                      axis=1)
+    valid = rng.random(N) < 0.7
+    states = [tsim.init_state(params, starts, valid=valid, device=dev)
+              for dev in (cuda, 'cpu')]
+    ph.reset_launch_count()
+    tsim.reset_flush_count()
+    flushed = [tsim.flush_pending(st) for st in states]
+    torch.cuda.synchronize()
+    assert ph.launch_count('presence_flush') == tsim.flush_count() - 1 == 1
+    assert ph.launch_count('presence_histogram') == 0
+    assert torch.equal(flushed[0].presence.cpu(), flushed[1].presence)
+    assert int(flushed[0].presence.sum()) == int(valid.sum())
+    assert not flushed[0].palive.any()
+    assert torch.equal(flushed[0].alive.cpu(), torch.from_numpy(valid))
 
 
 def test_histogram_launch_counters_count_card_launches(cuda):
@@ -260,18 +358,25 @@ def test_histogram_launch_counters_count_card_launches(cuda):
     ph.presence_histogram_batch(r, r, 16, 16)
     ph.presence_histogram_batch(r.to(torch.int16), r.to(torch.int16), 16,
                                 16)
+    ph.presence_histogram_batch(r, r, 16, 16, plan=_plans(
+        16, 16, 10)['privatized'])
+    presence = torch.zeros((16, 16), dtype=torch.int32, device=cuda)
+    flags = torch.ones(10, dtype=torch.bool, device=cuda)
+    ph.presence_flush(r, r, flags, presence)
     ph.presence_histogram_plain(r, r, torch.ones(10, device=cuda), 16, 16)
     ph.presence_histogram_batch_plain(r, r, 16, 16)
+    ph.presence_flush_plain(r, r, flags, presence)
     assert ph.launch_count('presence_histogram') == 2
-    assert ph.launch_count('presence_histogram_batch') == 2
+    assert ph.launch_count('presence_histogram_batch') == 3
+    assert ph.launch_count('presence_flush') == 1
 
 
 def test_recorded_run_on_card_counts_equal_recount(cuda, tmp_path):
     """A small recorded run (the default budget) on the card: the counts
     equal the recount of its ``_tracks.pkl``; the chunk kernel ran once a
     chunk (2000 agents x 512 steps is one uniform block) and covered every
-    step, the per-step kernel never, kernel B every flush and kernel C the
-    recount."""
+    step, the per-step kernel never, the flush kernel every flush, the
+    weighted histogram never, and kernel C the recount."""
     cfg = dict(run_name='wy_rec', sim_mode='uniform', sim_seed=11,
                region_width_km=(12., 10.), resolution=200.,
                track_count=2000, track_start_region=(1., 11., 1., 2.),
@@ -288,7 +393,8 @@ def test_recorded_run_on_card_counts_equal_recount(cuda, tmp_path):
     assert rec['recorded'] and fs.launch_count() == 0
     assert fc.steps_count() == rec['steps']
     assert fc.launch_count() == -(-rec['steps'] // 512)
-    assert ph.launch_count('presence_histogram') == tsim.flush_count() >= 1
+    assert ph.launch_count('presence_flush') == tsim.flush_count() >= 1
+    assert ph.launch_count('presence_histogram') == 0
     counts_path = os.path.join(
         sim.mode_data_dir, 's10d270_d0_t75_fluidflow_r0_counts.npy')
     counts = np.load(counts_path)

@@ -177,7 +177,7 @@ def test_recorded_invariants(driver):
     assert presence.dtype == torch.int32
     assert int(presence.sum()) == lengths.sum()
     # the counts map equals the recount of the tracks, cell for cell
-    recount = tpresence.compute_presence_counts(tracks, GRID)
+    recount = tpresence.compute_presence_counts(tracks, GRID, device='cpu')
     np.testing.assert_array_equal(presence.numpy(), recount)
     for i, t in enumerate(tracks):
         assert t.dtype == np.int16 and t.shape[1] == 2
@@ -283,11 +283,11 @@ def _track_list(seed):
 def test_compute_presence_counts_matches_jax():
     tracks = _track_list(1)
     want = jpresence.compute_presence_counts(tracks, GRID)
-    got = tpresence.compute_presence_counts(tracks, GRID)
+    got = tpresence.compute_presence_counts(tracks, GRID, device='cpu')
     assert got.dtype == want.dtype == np.int16
     assert got[7, 9] < 0     # wrapped
     np.testing.assert_array_equal(got, want)
-    empty = tpresence.compute_presence_counts([], GRID)
+    empty = tpresence.compute_presence_counts([], GRID, device='cpu')
     np.testing.assert_array_equal(
         empty, jpresence.compute_presence_counts([], GRID))
 
@@ -295,14 +295,40 @@ def test_compute_presence_counts_matches_jax():
 def test_smooth_presence_counts_match_jax():
     tracks = _track_list(2)[:-1]
     want = jpresence.compute_smooth_presence_counts(tracks, GRID, 3.)
-    got = tpresence.compute_smooth_presence_counts(tracks, GRID, 3.)
+    got = tpresence.compute_smooth_presence_counts(tracks, GRID, 3.,
+                                                   device='cpu')
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     counts = torch.from_numpy(
-        tpresence.compute_presence_counts(tracks, GRID).astype(np.int32))
+        tpresence.compute_presence_counts(tracks, GRID, device='cpu')
+        .astype(np.int32))
     np.testing.assert_allclose(
         tpresence.smooth_presence_from_counts(counts, 3.).numpy(), want,
         rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize('entry', ['counts', 'smooth'])
+def test_presence_entry_points_run_on_the_card_by_default(entry):
+    """With no device, ``compute_presence_counts`` and
+    ``compute_smooth_presence_counts`` run on the card: without one they
+    raise, naming ``device='cpu'``, and with one they give the CPU's
+    answer; with ``device='cpu'`` they give ``ssrs_tpu``'s."""
+    tracks = _track_list(3)[:-1]
+    call, jax_call = {
+        'counts': (lambda **kw: tpresence.compute_presence_counts(
+            tracks, GRID, **kw),
+            lambda: jpresence.compute_presence_counts(tracks, GRID)),
+        'smooth': (lambda **kw: tpresence.compute_smooth_presence_counts(
+            tracks, GRID, 3., **kw),
+            lambda: jpresence.compute_smooth_presence_counts(tracks, GRID,
+                                                             3.))}[entry]
+    on_cpu = call(device='cpu')
+    np.testing.assert_allclose(on_cpu, jax_call(), rtol=1e-5, atol=1e-6)
+    if torch.cuda.is_available():
+        np.testing.assert_allclose(call(), on_cpu, rtol=1e-5, atol=1e-6)
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def _offline(*args, **kwargs):
@@ -379,7 +405,7 @@ def test_slice_recorded_counts_equal_recount(recorded_sims):
     _, port, flushes = recorded_sims
     counts = np.load(os.path.join(port.mode_data_dir, f'{ID}_counts.npy'))
     recount = tpresence.compute_presence_counts(_tracks_of(port),
-                                                port.gridsize)
+                                                port.gridsize, device='cpu')
     np.testing.assert_array_equal(recount.astype(np.int32), counts)
     # one flush at the end, and one before each compaction
     assert flushes >= 1
