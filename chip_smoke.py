@@ -34,10 +34,23 @@ run's own table and starts it holds one 512-step chunk launch against
 uniform draw, profiles a warm track phase and drives the per-step
 driver. It checks small runs on the card, with and without recorded
 tracks, against the same runs through the plain versions on the CPU.
+
+The multi-case paths, all at the README region's width: both kernels
+without a table (the directed random walk's branch) against their plain
+versions; the thermal field's Gaussian filter, card against CPU, and
+``compute_thermals`` on the run's aspect; the sweep of eight wind
+directions with 100,000 tracks each through ``simulate_direction_sweep``
+(two cases bit-identical to the single-case driver, launches counted,
+the batched track phase again warm, timed and profiled; a rerun from
+the potential cache); a run with two
+thermal realizations through the batched driver, with device-resident
+fields and through numpy (bitwise-equal artifacts); and a drw run
+(no potential, a second run equal to the first).
+
 Every phase prints one line; any failure exits non-zero. The last three
-lines are a JSON object with the solver's, the track engine's and the
-count's numbers, one with the kernels' numbers and the JSON status line
-``{"ok": true, "device": {...}}``.
+lines are a JSON object with the solver's, the track engine's, the
+count's and the multi-case paths' numbers, one with the kernels' numbers
+and the JSON status line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits
 non-zero and prints no result. It imports nothing of JAX.
@@ -126,6 +139,16 @@ CHUNK_CAP = CHUNK_S0 + 400
 CHUNK_SEG = 64
 # the drivers' chunk length (agents/simulate.py)
 DRIVER_CHUNK = 512
+# the direction sweep: BASELINE.json's config 2, eight wind directions
+SWEEP_DIRNS = (0., 45., 90., 135., 180., 225., 270., 315.)
+# the Gaussian filter, card against CPU, as a share of the field's maximum
+# (float32 sums of 33 taps, twice, in another order)
+GAUSS_TOL = 1e-5
+# compute_thermals: the mean mass of THERMAL_SEEDS fields against the
+# seeds' expected mass (one 500x600 field holds ~100 seeds of lognormal
+# size, so its sum scatters by ~12% and the mean of 8 by ~4%)
+THERMAL_SEEDS = 8
+THERMAL_MASS_TOL = 0.2
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device-memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -736,6 +759,17 @@ def _read_counts():
             'flushes': simulate.flush_count()}
 
 
+def _run_starts(cfg):
+    """The ``(N, 2)`` int32 start cells that a fresh ``Simulator`` of
+    ``cfg`` (a ``Config`` or a ``Simulator``) draws first."""
+    from ssrs_tpu_torch.agents import get_starting_indices
+    rows, cols = get_starting_indices(
+        cfg.track_count, list(cfg.track_start_region), cfg.track_start_type,
+        tuple(cfg.region_width_km), float(cfg.resolution),
+        rng=np.random.default_rng(cfg.sim_seed))
+    return np.stack([rows, cols], axis=1).astype(np.int32)
+
+
 def phase_main(torch, device_name, out):
     """The uniform-mode run of 100,000 tracks, in ``out``."""
     from ssrs_tpu_torch import Config, Simulator
@@ -847,7 +881,6 @@ def phase_recorded(torch, device_name, out):
     default track_pkl_budget), in the main run's ``out`` so that its
     potential comes from the cache."""
     from ssrs_tpu_torch import Config, Simulator
-    from ssrs_tpu_torch.agents import get_starting_indices
     from ssrs_tpu_torch.agents.presence import track_points
     from ssrs_tpu_torch.agents.presence_hist import presence_histogram_batch
     cfg = Config(out_dir=out, **{**MAIN_CONFIG,
@@ -875,13 +908,8 @@ def phase_recorded(torch, device_name, out):
     ident = sim._get_id_string(sim.case_ids[0], 0)
     with open(os.path.join(data, f'{ident}_tracks.pkl'), 'rb') as fobj:
         tracks = pickle.load(fobj)
-    rows, cols = get_starting_indices(
-        cfg.track_count, list(cfg.track_start_region), cfg.track_start_type,
-        tuple(cfg.region_width_km), float(cfg.resolution),
-        rng=np.random.default_rng(cfg.sim_seed))
-    lengths = _check_tracks(tracks, np.stack([rows, cols], axis=1),
-                            NROW, NCOL, sim.grid.burnin_length(),
-                            cfg.track_max_steps)
+    lengths = _check_tracks(tracks, _run_starts(cfg), NROW, NCOL,
+                            sim.grid.burnin_length(), cfg.track_max_steps)
     counts_path = os.path.join(data, f'{ident}_counts.npy')
     counts = np.load(counts_path)
     if int(counts.sum(dtype=np.int64)) != int(lengths.sum()):
@@ -1106,7 +1134,6 @@ def phase_chunk_main(torch, sim, device_name):
     profiled, equal to the run's counts; and the per-step driver
     (``simulate_presence``, the path of the fused step kernel) at the
     same width."""
-    from ssrs_tpu_torch.agents import get_starting_indices
     from ssrs_tpu_torch.agents.fused_chunk import (fused_chunk,
                                                    fused_chunk_plain)
     from ssrs_tpu_torch.agents.moves import (directional_probs,
@@ -1125,11 +1152,7 @@ def phase_chunk_main(torch, sim, device_name):
     restr = torch.from_numpy(restriction_table()).to(dev)
     table = prepared_weights(sim.load_updrafts(case)[0].float(), pot, dirp,
                              params.weight_dtype)
-    rows, cols = get_starting_indices(
-        sim.track_count, list(sim.track_start_region), sim.track_start_type,
-        tuple(sim.region_width_km), float(sim.resolution),
-        rng=np.random.default_rng(sim.sim_seed))
-    starts = np.stack([rows, cols], axis=1).astype(np.int32)
+    starts = _run_starts(sim)
     state0 = init_state(params, starts, device=dev)
     n = state0.pos_r.shape[0]
     gen = torch.Generator(device=dev).manual_seed(2030)
@@ -1315,6 +1338,554 @@ def phase_small(torch):
         say(f'{label}: card vs CPU plain versions L1 {l1:.4f} < {L1_BOUND}')
 
 
+def _dict_live_steps(before, after, pres):
+    """Live agent-steps of a chunk from the state ``before`` to ``after``
+    (dicts of tensors) that added ``pres`` to an empty map: every pending
+    agent counts once a step, so the map holds ``before``'s pending agents
+    and every live step but the last step's, which stays pending."""
+    return int(pres.sum()) - int(before['palive'].sum()) \
+        + int(after['palive'].sum())
+
+
+def phase_no_table(torch):
+    """The directed random walk's branch of both kernels (a null table
+    pointer) against their plain versions on the card, N=100k on 500x600:
+    k in {0, 1, 3} at nu = 1 exact (the per-step kernel's outputs and
+    counts; the chunk kernel's state, counts and emission rows over
+    CHUNK_T steps from before the burn-in's end), nu = 2 >= 99.9% of
+    moves; the k = 1 chunk timed beside its plain version and its bound."""
+    from ssrs_tpu_torch.agents.fused_chunk import (fused_chunk,
+                                                   fused_chunk_plain)
+    from ssrs_tpu_torch.agents.fused_step import (fused_step,
+                                                  fused_step_plain)
+    from ssrs_tpu_torch.agents.moves import (directional_probs,
+                                             restriction_table)
+    dev = torch.device('cuda')
+    restr = torch.from_numpy(restriction_table()).to(dev)
+    dirp = torch.from_numpy(directional_probs(30.)).to(dev)
+    rng = np.random.default_rng(2032)
+    gen = torch.Generator(device=dev).manual_seed(2032)
+    burnin = min(NROW, NCOL) // 10
+    max_err = 0
+    out = {}
+
+    def step(fn, a, pres, nu, k):
+        return fn(None, restr, dirp, a['pr'], a['pc'], a['r'], a['c'],
+                  a['alive'], a['palive'], a['mem'], a['u'], pres, nu=nu,
+                  memory_k=k)
+
+    def chunk(fn, st, u, pres, nu, k, emit):
+        fn(None, restr, dirp, st['r'], st['c'], st['mem'], st['alive'],
+           st['palive'], u, pres, nu=nu, memory_k=k, s0=CHUNK_S0,
+           burnin=burnin, nsteps=10_000, emit=emit)
+
+    for k in (0, 1, 3):
+        _, a = _step_inputs(torch, rng, torch.float32, dev)
+        a['mem'] = torch.from_numpy(
+            rng.integers(0, 9, (max(k, 1), N_AGENTS)).astype(np.int32)
+        ).to(dev)
+        pres_k = torch.zeros(NROW, NCOL, dtype=torch.int32, device=dev)
+        pres_p = torch.zeros_like(pres_k)
+        out_k = step(fused_step, a, pres_k, 1.0, k)
+        out_p = step(fused_step_plain, a, pres_p, 1.0, k)
+        st_k = _chunk_state(torch, rng, k, dev)
+        st_p = {name: v.clone() for name, v in st_k.items()}
+        before = {name: v.clone() for name, v in st_k.items()}
+        u = torch.rand((CHUNK_T, N_AGENTS), generator=gen, device=dev)
+        emit_k = _emission(torch, CHUNK_T, -7, dev)
+        emit_p = _emission(torch, CHUNK_T, 11, dev)
+        cpres_k, cpres_p = torch.zeros_like(pres_k), torch.zeros_like(pres_k)
+        chunk(fused_chunk, st_k, u, cpres_k, 1.0, k, emit_k)
+        t0 = time.perf_counter()
+        chunk(fused_chunk_plain, st_p, u, cpres_p, 1.0, k, emit_p)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        pairs = list(zip(('new_r', 'new_c', 'new_mem'), out_k, out_p))
+        pairs += [('step presence', pres_k, pres_p),
+                  ('chunk presence', cpres_k, cpres_p),
+                  ('emitted positions', emit_k[0], emit_p[0]),
+                  ('emitted flags', emit_k[1], emit_p[1])]
+        pairs += [(name, st_k[name], st_p[name]) for name in st_k]
+        for name, x, y in pairs:
+            err = int((x.long() - y.long()).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                fail(f'no table, k={k}: {name} differs from plain (max abs '
+                     f'err {err})')
+        if int(cpres_k.sum()) <= 0 or int(pres_k.sum()) <= 0:
+            fail(f'no table, k={k}: nothing was counted')
+        say(f'no-table kernels k={k} nu=1: per-step and chunk (T={CHUNK_T} '
+            f'from step {CHUNK_S0}, emission rows) exact match with plain '
+            f'(N={N_AGENTS}, {NROW}x{NCOL}; '
+            f'{int(st_k["alive"].sum())} alive after)')
+        if k == 1:
+            live = _dict_live_steps(before, st_k, cpres_k)
+            cells = int((cpres_k > 0).sum())
+
+            def timed():
+                st = {name: v.clone() for name, v in before.items()}
+                pres = torch.zeros_like(cpres_k)
+                return _once_ms(torch, lambda: chunk(fused_chunk, st, u,
+                                                     pres, 1.0, 1, None))[0]
+
+            ms = float(np.median([timed() for _ in range(5)]))
+            bound_ms, bound_by = _chunk_bound(N_AGENTS, 1, 0, live, cells)
+            out = {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                   'bound_by': bound_by, 'live_agent_steps': live,
+                   'cells': cells, 'steps': CHUNK_T}
+            say(f'no-table chunk k=1 ({live} live agent-steps, {cells} '
+                f'cells): {ms:.3f} ms device, plain {plain_ms:.1f} ms wall, '
+                f'bound {bound_ms:.4f} ms ({bound_by})')
+    # nu = 2
+    _, a = _step_inputs(torch, rng, torch.float32, dev)
+    pres_k = torch.zeros(NROW, NCOL, dtype=torch.int32, device=dev)
+    pres_p = torch.zeros_like(pres_k)
+    out_k = step(fused_step, a, pres_k, 2.0, 1)
+    out_p = step(fused_step_plain, a, pres_p, 2.0, 1)
+    st_k = _chunk_state(torch, rng, 1, dev)
+    st_p = {name: v.clone() for name, v in st_k.items()}
+    u = torch.rand((1, N_AGENTS), generator=gen, device=dev)
+    cpres_k, cpres_p = torch.zeros_like(pres_k), torch.zeros_like(pres_k)
+    chunk(fused_chunk, st_k, u, cpres_k, 2.0, 1, None)
+    chunk(fused_chunk_plain, st_p, u, cpres_p, 2.0, 1, None)
+    torch.cuda.synchronize()
+    fracs = [float(((x[0] == y[0]) & (x[1] == y[1])).to(torch.float64).mean())
+             for x, y in ((out_k, out_p), ((st_k['r'], st_k['c']),
+                                           (st_p['r'], st_p['c'])))]
+    if min(fracs) < NU2_MIN_EQUAL or not torch.equal(pres_k, pres_p) or \
+            not torch.equal(cpres_k, cpres_p):
+        fail(f'no table, nu=2: {fracs} of moves equal, or the presence '
+             'differs')
+    say(f'no-table kernels nu=2: per-step {fracs[0]:.6f}, chunk (T=1) '
+        f'{fracs[1]:.6f} of moves equal (>= {NU2_MIN_EQUAL}), presence '
+        'exact')
+    out['max_abs_err'] = max_err
+    return out
+
+
+def phase_thermals(torch, sim):
+    """The thermal field's two pieces on the card at 500x600: the Gaussian
+    filter (two float32 convolutions of 33 taps; called with TF32 allowed,
+    which it must turn off itself) against the CPU on one numpy-seeded
+    field, to GAUSS_TOL of the field's maximum; and
+    ``compute_thermals`` on the main run's aspect: the outer 10% less the
+    filter's 16 cells exactly zero, and the mean sum of THERMAL_SEEDS
+    fields within THERMAL_MASS_TOL of the seeds' expected mass (the filter
+    loses none; one field's sum scatters by ~12%, the mean of 8 by ~4%)."""
+    from ssrs_tpu_torch.core.rng import case_generator
+    from ssrs_tpu_torch.fields import compute_thermals, gaussian_filter
+    dev = sim.device
+    rng = np.random.default_rng(2033)
+    field = torch.from_numpy(
+        (rng.random((NROW, NCOL)) ** 8 * 40.).astype(np.float32))
+    # with TF32 allowed around the call: the filter turns it off itself
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = gaussian_filter(field.to(dev))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    want = gaussian_filter(field)
+    err = float((got.cpu() - want).abs().max())
+    if not err <= GAUSS_TOL * float(field.max()):
+        fail(f'gaussian_filter: card vs CPU max abs err {err:.3e} > '
+             f'{GAUSS_TOL} x {float(field.max()):.3g}')
+    ms = _device_ms(torch, lambda: gaussian_filter(got), steps=20)
+    aspect = sim._slope_aspect()[1]
+    scale = 2.0
+    by, bx = int(0.1 * NROW), int(0.1 * NCOL)
+    wt = torch.floor(1000. + (aspect[by:-by, bx:-bx].double() - 180.).abs()
+                     / 180. * 2000.)
+    expected = float((1. / (wt - 1.)).sum()) * math.exp(scale + 3. + 0.125)
+    sums = []
+    for real in range(THERMAL_SEEDS):
+        gen = case_generator(sim.sim_seed, 'smoke', real, 'thermals', dev)
+        th = compute_thermals(gen, aspect, scale)
+        inner = torch.zeros_like(th, dtype=torch.bool)
+        edge_y, edge_x = max(by - 16, 0), max(bx - 16, 0)
+        inner[edge_y:NROW - edge_y, edge_x:NCOL - edge_x] = True
+        if th.shape != (NROW, NCOL) or not torch.isfinite(th).all() or \
+                float(th.min()) < 0. or bool(th[~inner].any()):
+            fail('compute_thermals: the field is not finite, non-negative '
+                 'and zero on the border')
+        sums.append(float(th.double().sum()))
+    gen = case_generator(sim.sim_seed, 'smoke', 0, 'thermals', dev)
+    if float(compute_thermals(gen, aspect, scale).double().sum()) != sums[0]:
+        fail('compute_thermals: the same seed gave another field')
+    ratio = float(np.mean(sums)) / expected
+    if abs(ratio - 1.) > THERMAL_MASS_TOL:
+        fail(f'compute_thermals: mean mass {np.mean(sums):.4g} over '
+             f'{THERMAL_SEEDS} seeds is {ratio:.3f} of the expected '
+             f'{expected:.4g}')
+    say(f'thermals: gaussian_filter {NROW}x{NCOL} card vs CPU max abs err '
+        f'{err:.3e} <= {GAUSS_TOL} x max, {ms * 1e3:.1f} us device; '
+        f'compute_thermals on the run\'s aspect: border exactly zero, mean '
+        f'mass of {THERMAL_SEEDS} seeds {ratio:.3f} of the expected '
+        f'{expected:.4g} (within {THERMAL_MASS_TOL}), a seed reproduces')
+    return {'gaussian_filter_err': err, 'gaussian_filter_ms': ms,
+            'thermal_mass_ratio': ratio}
+
+
+def _check_case_counts(label, counts, tracks, burnin):
+    if counts.shape != (NROW, NCOL) or counts.dtype != np.int32 or \
+            not np.isfinite(counts).all() or counts.min() < 0:
+        fail(f'{label}: counts are not a finite non-negative int32 '
+             f'{NROW}x{NCOL} map')
+    total = int(counts.sum(dtype=np.int64))
+    if total < tracks * (burnin + 1):
+        fail(f'{label}: presence mass {total} < {tracks * (burnin + 1)}')
+    return total
+
+
+def _check_batched_launches(label, launched, rec):
+    """The cases driver's launches: one chunk launch a chunk of every case
+    (each chunk, at most 100,000 agents x DRIVER_CHUNK steps, is one
+    uniform block), no per-step launch, one flush launch a flush."""
+    chunks = sum(math.ceil(s / DRIVER_CHUNK) for s in rec['steps'])
+    if launched['fused_chunk'] != chunks or launched['fused_step'] or \
+            launched['fused_chunk_steps'] != sum(rec['steps']):
+        fail(f'{label}: {launched["fused_chunk"]} chunk launches covering '
+             f'{launched["fused_chunk_steps"]} steps and '
+             f'{launched["fused_step"]} per-step launches for steps '
+             f'{rec["steps"]} ({chunks} chunks)')
+    _check_flush_launches(label, launched)
+
+
+def _solver_line(rec):
+    s = rec['solver'] + (' -> direct (fallback)' if rec['fallback'] else '')
+    if rec['rrel'] is not None:
+        s += f' rrel {rec["rrel"]:.2e}'
+    return f'{rec["id"].split("_")[0]} {s} {rec["seconds"]:.2f} s'
+
+
+def phase_sweep(torch, device_name, out):
+    """The direction sweep: SWEEP_DIRNS at the README region's width,
+    100,000 tracks a direction, through ``simulate_direction_sweep``."""
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.agents.moves import directional_probs
+    from ssrs_tpu_torch.agents.simulate import (
+        prepared_weights, prepared_weights_batch,
+        simulate_presence_cases_compacting, simulate_presence_compacting)
+    from ssrs_tpu_torch.core.rng import case_generator
+    cfg = Config(out_dir=out, **{**MAIN_CONFIG, 'run_name': 'wy_sweep'})
+    sim = Simulator(cfg)
+    dev = sim.device
+    n_cases = len(SWEEP_DIRNS)
+    tracks = cfg.track_count
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cases = sim.simulate_direction_sweep(SWEEP_DIRNS)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launched = _read_counts()
+    if cases != [f's10d{int(d)}' for d in SWEEP_DIRNS]:
+        fail(f'sweep: case ids {cases}')
+    pots = [r for r in sim.timer.records if r['phase'] == 'potential']
+    recs = [r for r in sim.timer.records if r['phase'] == 'batched_tracks']
+    if len(pots) != n_cases or len(recs) != 1 or \
+            recs[0]['cases'] != n_cases or \
+            any(r['solver'] not in ('refined', 'direct') for r in pots):
+        fail(f'sweep: {len(pots)} potential records, batched records {recs}')
+    rec = recs[0]
+    _check_batched_launches('sweep', launched, rec)
+    burnin = sim.grid.burnin_length()
+
+    def load(case, kind):
+        return np.load(os.path.join(
+            sim.mode_data_dir, f'{sim._get_id_string(case, 0)}_{kind}.npy'))
+
+    counts = {c: load(c, 'counts') for c in cases}
+    mass = sum(_check_case_counts(f'sweep {c}', counts[c], tracks, burnin)
+               for c in cases)
+    if rec['useful_steps'] != mass - n_cases * tracks:
+        fail(f'sweep: useful_steps {rec["useful_steps"]} != '
+             f'{mass - n_cases * tracks}')
+    for c in cases:
+        if not os.path.isfile(os.path.join(sim.mode_data_dir,
+                                           f'{c}_orograph.npy')):
+            fail(f'sweep: {c}_orograph.npy is missing')
+    prep_s = sum(r['seconds'] for r in pots)
+    rounds = max(math.ceil(s / DRIVER_CHUNK) for s in rec['steps'])
+    say('sweep potentials: ' + '; '.join(_solver_line(r) for r in pots))
+    say(f'sweep: {n_cases} directions x {tracks} tracks in {sweep_s:.3f} s: '
+        f'potentials {prep_s:.3f} s, batched track phase '
+        f'{rec["seconds"]:.3f} s for {rec["useful_steps"]} agent-steps = '
+        f'{rec["useful_steps"] / rec["seconds"]:.4g} agent-steps/s; steps '
+        f'{rec["steps"]}, {rounds} rounds, {launched["fused_chunk"]} chunk '
+        f'launches ({launched["fused_chunk"] / rounds:.2f} a round), '
+        f'{launched["flushes"]} flushes through '
+        f'{launched["presence_flush"]} flush launches, 0 per-step launches '
+        f'on {device_name}')
+
+    # two cases against the single-case driver, bit for bit; every table
+    # of the batched build against its own build
+    params = sim._track_params()
+    starts = _run_starts(cfg)
+    dirp = torch.from_numpy(directional_probs(params.move_dirn)).to(dev)
+    ups = torch.stack([sim.load_updrafts(c)[0] for c in cases])
+    potentials = torch.stack([torch.from_numpy(load(c, 'potential')).to(dev)
+                              for c in cases])
+    tables = prepared_weights_batch(ups, potentials, dirp.expand(n_cases, 9),
+                                    params.weight_dtype)
+    for i in range(n_cases):
+        single = prepared_weights(ups[i], potentials[i], dirp,
+                                  params.weight_dtype)
+        if not torch.equal(tables[i].view(torch.int16),
+                           single.view(torch.int16)):
+            fail(f'sweep: table {i} of the batched build differs from its '
+                 'own build')
+    # the first case, and one whose potential came from the fallback (or
+    # 225 degrees, where the refined solve stalled on the tests' field)
+    fallen = [i for i, r in enumerate(pots) if r['fallback'] and i > 0]
+    picks = [0, (fallen + [n_cases // 2 + 1])[0]]
+    for i in picks:
+        got, steps = simulate_presence_compacting(
+            params, starts, case_generator(cfg.sim_seed, cases[i], 0,
+                                           'tracks', dev),
+            base_flat=tables[i], dirp=dirp)
+        if steps != rec['steps'][i] or \
+                not np.array_equal(got.cpu().numpy(), counts[cases[i]]):
+            fail(f'sweep: case {cases[i]} differs from the single-case '
+                 'compacting driver')
+    say(f'sweep: cases {[cases[i] for i in picks]} bit-identical to '
+        'simulate_presence_compacting with the same seed, table and '
+        f'starts; the {n_cases} batched tables equal their own builds')
+
+    # the batched track phase again, warm, twice timed and once profiled;
+    # every result equal to the sweep's
+    def batched():
+        gens = [case_generator(cfg.sim_seed, c, 0, 'tracks', dev)
+                for c in cases]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        presence, steps = simulate_presence_cases_compacting(
+            params, tables, starts, gens)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, presence, steps
+
+    def checked(run):
+        secs, presence, steps = run
+        presence = presence.cpu().numpy()
+        if list(steps) != rec['steps'] or any(
+                not np.array_equal(presence[i], counts[c])
+                for i, c in enumerate(cases)):
+            fail('sweep: the warm batched phase differs from the sweep')
+        return secs
+
+    warm = [checked(batched()) for _ in range(2)]
+    run = []
+    launches, device_ms, prof_s = _profile_launches(
+        torch, lambda: run.append(batched()))
+    checked(run[0])
+    profiled = {
+        'launches': launches, 'device_ms': device_ms, 'wall_s': prof_s,
+        'busy_share': device_ms / (prof_s * 1e3),
+        'launches_per_round': launches / rounds}
+    useful = rec['useful_steps']
+    say(f'sweep, warm batched track phase (s): {warm[0]:.4f}, '
+        f'{warm[1]:.4f} = {useful / min(warm):.4g} agent-steps/s; '
+        f'bit-identical to the sweep. Profiled: {launches} launches '
+        f'({profiled["launches_per_round"]:.1f} a round), '
+        f'{device_ms:.1f} ms device in {prof_s:.3f} s (busy '
+        f'{profiled["busy_share"]:.1%}) on {device_name}')
+
+    # a rerun: every potential from the cache, equal counts
+    sim._rng = np.random.default_rng(cfg.sim_seed)
+    n_before = len(sim.timer.records)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.simulate_direction_sweep(SWEEP_DIRNS)
+    torch.cuda.synchronize()
+    rerun_s = time.perf_counter() - t0
+    again = [r for r in sim.timer.records[n_before:]
+             if r['phase'] == 'potential']
+    hits = sum(r['solver'] == 'cache' for r in again)
+    if hits != n_cases or any(
+            not np.array_equal(load(c, 'counts'), counts[c]) for c in cases):
+        fail(f'sweep rerun: {hits} cache hits of {n_cases}, or the counts '
+             'differ')
+    rerun = [r for r in sim.timer.records[n_before:]
+             if r['phase'] == 'batched_tracks'][0]
+    say(f'sweep rerun: {hits} cache hits, equal counts, {rerun_s:.3f} s '
+        f'(batched track phase {rerun["seconds"]:.3f} s)')
+    sim.compute_presence_map()
+    return launched, {
+        'directions': list(SWEEP_DIRNS), 'sweep_s': sweep_s,
+        'potentials_s': prep_s,
+        'potentials': [{k: r[k] for k in ('id', 'solver', 'fallback', 'rrel',
+                                          'seconds', 'vcycles')}
+                       for r in pots],
+        'batched_tracks_s': rec['seconds'], 'useful_steps': useful,
+        'steps': rec['steps'], 'rounds': rounds,
+        'chunk_launches': launched['fused_chunk'],
+        'flushes': launched['flushes'], 'warm_s': warm,
+        'profiled': profiled, 'rerun_s': rerun_s,
+        'rerun_batched_tracks_s': rerun['seconds']}
+
+
+def phase_thermals_run(torch, device_name, out):
+    """Two thermal realizations at the README region's width, 100,000
+    tracks each, counts only: three work items through the batched driver,
+    once with device-resident fields and once through numpy (bitwise-equal
+    artifacts); the presence map sums the three realizations."""
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.agents import smooth_presence
+    runs = {}
+    for fields_device in (True, False):
+        cfg = Config(out_dir=out, **{
+            **MAIN_CONFIG, 'run_name': f'wy_thermals_{fields_device}',
+            'thermals_realization_count': 2, 'track_pkl_budget': 0,
+            'fields_device': fields_device})
+        t0 = time.perf_counter()
+        sim = Simulator(cfg)
+        ctor = time.perf_counter() - t0
+        _reset_counts()
+        sim.simulate_tracks()
+        launched = _read_counts()
+        recs = [r for r in sim.timer.records
+                if r['phase'] == 'batched_tracks']
+        pots = [r for r in sim.timer.records if r['phase'] == 'potential']
+        if len(recs) != 1 or recs[0]['cases'] != 3 or len(pots) != 3:
+            fail(f'thermals run: batched records {recs}, {len(pots)} '
+                 'potential records')
+        _check_batched_launches('thermals run', launched, recs[0])
+        case = sim.case_ids[0]
+        arts = {}
+        for real in range(3):
+            ident = sim._get_id_string(case, real)
+            for kind in ('counts', 'potential'):
+                arts[f'{ident}_{kind}'] = np.load(os.path.join(
+                    sim.mode_data_dir, f'{ident}_{kind}.npy'))
+            _check_case_counts(f'thermals run r{real}',
+                               arts[f'{ident}_counts'], cfg.track_count,
+                               sim.grid.burnin_length())
+        for real in range(2):
+            arts[f'thermals_{real}'] = np.load(os.path.join(
+                sim.mode_data_dir, f'{case}_r{real}_thermals.npy'))
+        runs[fields_device] = (sim, arts, launched, recs[0], pots, ctor)
+    sim, arts, launched, rec, pots, ctor = runs[True]
+    host = runs[False][1]
+    if arts.keys() != host.keys() or any(
+            not np.array_equal(arts[k], host[k]) for k in arts):
+        fail('thermals run: fields_device on and off give different '
+             'artifacts')
+    if not arts['thermals_0'].max() > 0. or \
+            np.array_equal(arts['thermals_0'], arts['thermals_1']):
+        fail('thermals run: the thermal fields are empty or equal')
+    summary = sim.compute_presence_map()
+    krad = sim._presence_kernel_radius(1000.)
+    case_prob = np.zeros((NROW, NCOL))
+    for real in range(3):
+        ident = sim._get_id_string(sim.case_ids[0], real)
+        prob = smooth_presence(torch.from_numpy(
+            arts[f'{ident}_counts']).to(sim.device), krad).cpu().numpy()
+        case_prob += prob / prob.max()
+    case_prob /= case_prob.max()
+    if summary.max() != 1.0 or \
+            np.abs(summary - case_prob / case_prob.max()).max() > 1e-6:
+        fail('thermals run: the presence map is not the sum over the three '
+             'realizations')
+    phases = {r['phase']: r['seconds'] for r in sim.timer.records
+              if r['phase'] in ('terrain', 'updrafts', 'thermals',
+                                'simulate_tracks', 'presence_map')}
+    prep_s = sum(r['seconds'] for r in pots)
+    say('thermals run potentials: ' + '; '.join(
+        f'r{i} ' + _solver_line(r).split(' ', 1)[1]
+        for i, r in enumerate(pots)))
+    say(f'thermals run: 3 realizations x {sim.track_count} tracks; ctor '
+        f'{ctor:.3f} s (thermal fields {phases["thermals"]:.3f} s), '
+        f'potentials {prep_s:.3f} s, batched track phase '
+        f'{rec["seconds"]:.3f} s for {rec["useful_steps"]} agent-steps = '
+        f'{rec["useful_steps"] / rec["seconds"]:.4g} agent-steps/s, '
+        f'presence_map {phases["presence_map"]:.3f} s; steps '
+        f'{rec["steps"]}, {launched["fused_chunk"]} chunk launches, '
+        f'{launched["flushes"]} flushes; fields_device on and off: '
+        f'bitwise-equal counts, potentials and thermal fields (host flow: '
+        f'potentials {sum(r["seconds"] for r in runs[False][4]):.3f} s, '
+        f'batched track phase {runs[False][3]["seconds"]:.3f} s); the '
+        f'presence map sums the three realizations, on {device_name}')
+    return launched, {
+        'ctor_s': ctor, 'thermals_s': phases['thermals'],
+        'potentials_s': prep_s, 'batched_tracks_s': rec['seconds'],
+        'useful_steps': rec['useful_steps'], 'steps': rec['steps'],
+        'presence_map_s': phases['presence_map'],
+        'potentials': [{k: r[k] for k in ('id', 'solver', 'fallback', 'rrel',
+                                          'seconds', 'vcycles')}
+                       for r in pots],
+        'host_flow': {'potentials_s': sum(r['seconds']
+                                          for r in runs[False][4]),
+                      'batched_tracks_s': runs[False][3]['seconds']}}
+
+
+def phase_drw(torch, device_name, out):
+    """The directed random walk at the README region's width, 100,000
+    tracks: no potential phase and no potential artifact, the chunk kernel
+    without a table; a second run in the same directory equal to the
+    first; then the per-step driver without a table."""
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.agents.simulate import simulate_presence
+    cfg = Config(out_dir=out, **{**MAIN_CONFIG, 'run_name': 'wy_drw',
+                                 'movement_model': 'drw'})
+    results = []
+    for _ in range(2):
+        sim = Simulator(cfg)
+        _reset_counts()
+        sim.simulate_tracks()
+        launched = _read_counts()
+        records = {r['phase']: r for r in sim.timer.records}
+        rec = records['tracks']
+        if 'potential' in records or 'batched_tracks' in records or \
+                [n for n in os.listdir(sim.mode_data_dir)
+                 if 'potential' in n]:
+            fail('drw run: a potential phase or artifact')
+        _check_chunk_launches('drw run', launched, rec['steps'])
+        _check_flush_launches('drw run', launched)
+        ident = sim._get_id_string(sim.case_ids[0], 0)
+        if '_drw_' not in ident:
+            fail(f'drw run: artifact id {ident}')
+        counts = np.load(os.path.join(sim.mode_data_dir,
+                                      f'{ident}_counts.npy'))
+        _check_case_counts('drw run', counts, cfg.track_count,
+                           sim.grid.burnin_length())
+        results.append((counts, rec, launched))
+    (counts, rec, launched), (again, warm, _) = results
+    if not np.array_equal(counts, again) or rec['steps'] != warm['steps']:
+        fail('drw run: the second run differs from the first')
+    sim.compute_presence_map()
+    say(f'drw run: {cfg.track_count} tracks, {rec["steps"]} steps, '
+        f'{launched["fused_chunk"]} chunk launches without a table, '
+        f'{launched["flushes"]} flushes, no potential; '
+        f'{rec["useful_steps"]} agent-steps in {rec["seconds"]:.3f} s = '
+        f'{rec["useful_steps"] / rec["seconds"]:.4g} agent-steps/s; second '
+        f'run {warm["seconds"]:.3f} s, equal counts, on {device_name}')
+    # the per-step kernel's path without a table
+    params = sim._track_params()
+    starts = _run_starts(cfg)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    presence, ps_steps = simulate_presence(
+        params, starts, torch.Generator(device=sim.device).manual_seed(2034))
+    torch.cuda.synchronize()
+    ps_s = time.perf_counter() - t0
+    per_step = _read_counts()
+    mass = int(presence.sum())
+    _check_flush_launches('drw per-step driver', per_step, flushes=1)
+    if per_step['fused_step'] != ps_steps or per_step['fused_chunk'] or \
+            mass < cfg.track_count * (params.burnin + 1):
+        fail(f'drw per-step driver: {per_step} for {ps_steps} steps, mass '
+             f'{mass}')
+    say(f'drw per-step driver (simulate_presence without a table): '
+        f'{ps_steps} steps through {per_step["fused_step"]} fused step '
+        f'launches, {mass - cfg.track_count} agent-steps in {ps_s:.3f} s')
+    return launched, {
+        'steps': rec['steps'], 'tracks_s': rec['seconds'],
+        'useful_steps': rec['useful_steps'], 'second_run_s': warm['seconds'],
+        'per_step_driver': {'steps': ps_steps, 'seconds': ps_s,
+                            'fused_step_launches': per_step['fused_step']}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1333,12 +1904,17 @@ def main() -> int:
     phase_build()
     max_err, timing = phase_kernel(torch)
     chunk_err = phase_chunk(torch)
+    no_table = phase_no_table(torch)
     hist = phase_hist(torch)
     with tempfile.TemporaryDirectory(dir=REPO, prefix='.smoke_') as out:
         main_run, sim = phase_main(torch, name, out)
         solver = phase_solver(torch, sim, name)
         engine = phase_chunk_main(torch, sim, name)
         recorded, count_real = phase_recorded(torch, name, out)
+        thermals = phase_thermals(torch, sim)
+        sweep_run, sweep = phase_sweep(torch, name, out)
+        thermals_run, thermals_path = phase_thermals_run(torch, name, out)
+        drw_run, drw = phase_drw(torch, name, out)
     phase_small(torch)
     if any(m for m in sys.modules if m.split('.')[0] in ('jax', 'ssrs_tpu')):
         fail('JAX or ssrs_tpu was imported')
@@ -1352,20 +1928,27 @@ def main() -> int:
         # its path: the per-step driver simulate_presence
         'path': 'simulate_presence',
         'launches': engine['per_step_path_launches']['fused_step'],
-        'max_abs_err': max_err, 'ms': bf16['ms'],
+        'max_abs_err': max(max_err, no_table['max_abs_err']),
+        'ms': bf16['ms'],
         'plain_ms': bf16['plain_ms'], 'bound_ms': bf16['bound_ms'],
         'bound_by': bf16['bound_by'], 'library_ms': None,
-        'ms_float32': f32['ms'], 'plain_ms_float32': f32['plain_ms']}, {
+        'ms_float32': f32['ms'], 'plain_ms_float32': f32['plain_ms'],
+        'launches_no_table':
+            drw['per_step_driver']['fused_step_launches']}, {
         'name': 'fused_chunk', 'route': 'cuda',
         'source': 'ssrs_tpu_torch/csrc/fused_chunk.cu',
         'replaces': 'ssrs_tpu/agents/fused_step.py:52',
         'path': 'uniform run (simulate_presence_compacting)',
         'launches': main_run['fused_chunk'],
-        'max_abs_err': chunk_err, 'ms': engine['chunk_ms'],
+        'max_abs_err': max(chunk_err, no_table['max_abs_err']),
+        'ms': engine['chunk_ms'],
         'plain_ms': engine['plain_ms'], 'bound_ms': engine['bound_ms'],
         'bound_by': engine['bound_by'], 'library_ms': None,
         'steps': CHUNK_T, 'per_step_ms': engine['per_step_device_ms'],
-        'uniform_draw_ms': engine['uniform_draw_ms']}, {
+        'uniform_draw_ms': engine['uniform_draw_ms'],
+        # the branch without a table (the directed random walk), on
+        # synthetic states at the same width
+        'no_table': no_table}, {
         # times on the main field's state after one chunk; beside them the
         # 100k synthetic points and the flush it replaced
         'name': 'presence_flush', 'route': 'cuda',
@@ -1414,6 +1997,15 @@ def main() -> int:
         # 10,000-track recorded run, each counted from 0 just before it
         k['launches_uniform_run'] = main_run[k['name']]
         k['launches_recorded_run'] = recorded[k['name']]
+        # this slice's paths: the direction sweep, the thermals run and the
+        # drw run, each counted from 0 just before it
+        new_paths = {'launches_sweep': sweep_run,
+                     'launches_thermals_run': thermals_run,
+                     'launches_drw_run': drw_run}
+        for key, counted in new_paths.items():
+            k[key] = counted[k['name']]
+            if k[key] < 1 and k['name'] in ('fused_chunk', 'presence_flush'):
+                fail(f'{k["name"]}: not launched on its path ({key})')
         # the weighted histogram is a standalone kernel, as in ssrs_tpu:
         # no path runs it since the flush has its own kernel (phase_hist
         # holds it against its plain version all the same)
@@ -1423,8 +2015,10 @@ def main() -> int:
               if key not in ('per_step_path_launches', 'flush_real')}
     count = {key: hist[key] for key in ('count_hot_cell', 'count_bands',
                                         'count_sweep')}
-    print(json.dumps({'solver': solver, 'engine': engine, 'count': count}),
-          flush=True)
+    cases = {'no_table': no_table, 'thermals': thermals, 'sweep': sweep,
+             'thermals_run': thermals_path, 'drw': drw}
+    print(json.dumps({'solver': solver, 'engine': engine, 'count': count,
+                      'cases': cases}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -1,7 +1,7 @@
 """Agent engine: move tables, start sampler, the fused step and chunk
 kernels, the presence histogram kernels, the lockstep drivers (with
-compaction, and with recorded trajectories), presence counting and
-smoothing."""
+compaction, with recorded trajectories, and over several cases at once),
+presence counting and smoothing."""
 
 # the modules ``agents.fused_step``, ``agents.fused_chunk`` and
 # ``agents.presence_hist`` hold kernel wrappers of the same names; they
@@ -15,8 +15,10 @@ from .presence_hist import (presence_histogram_batch_plain,
                             presence_histogram_plain)
 from .simulate import (RecordedRun, SimState, TrackParams, flush_count,
                        flush_pending, init_state, make_chunk_fn,
-                       make_step_fn,
-                       prepared_weights, reset_flush_count, simulate_presence,
+                       make_step_fn, prepared_weights,
+                       prepared_weights_batch, reset_flush_count,
+                       simulate_presence, simulate_presence_cases,
+                       simulate_presence_cases_compacting,
                        simulate_presence_compacting,
                        simulate_tracks_recorded, state_from_numpy,
                        weights_from_numpy)
@@ -30,7 +32,9 @@ __all__ = ['fused_step_plain', 'launch_count',
            'presence_histogram_plain', 'RecordedRun', 'SimState',
            'TrackParams', 'flush_count', 'flush_pending', 'init_state',
            'make_chunk_fn', 'make_step_fn', 'prepared_weights',
-           'reset_flush_count', 'simulate_presence',
+           'prepared_weights_batch', 'reset_flush_count',
+           'simulate_presence', 'simulate_presence_cases',
+           'simulate_presence_cases_compacting',
            'simulate_presence_compacting', 'simulate_tracks_recorded',
            'state_from_numpy', 'weights_from_numpy',
            'get_starting_indices']

@@ -26,7 +26,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .fused_step import alive_and_push, fused_step_plain
+from .fused_step import (alive_and_push, check_table, fused_step_plain,
+                         table_launch_args)
 
 # the kernel keeps the direction-memory ring in registers, up to this
 # length; longer memories take the per-step kernel
@@ -54,7 +55,7 @@ def reset_launch_count() -> None:
     _steps = 0
 
 
-def fused_chunk_plain(table: torch.Tensor, restr: torch.Tensor,
+def fused_chunk_plain(table: Optional[torch.Tensor], restr: torch.Tensor,
                       dirp: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
                       mem: torch.Tensor, alive: torch.Tensor,
                       palive: torch.Tensor, u: torch.Tensor,
@@ -90,11 +91,7 @@ def _check(table, restr, dirp, r, c, mem, alive, palive, u, presence,
     nrow, ncol = presence.shape
     n = r.shape[0]
     steps = u.shape[0] if u.dim() == 2 else -1
-    if table.dtype not in (torch.float32, torch.bfloat16) or \
-            tuple(table.shape) != (nrow * ncol, 9):
-        raise ValueError('table must be float32 or bfloat16 of shape '
-                         f'({nrow * ncol}, 9), got {table.dtype} '
-                         f'{tuple(table.shape)}')
+    check_table(table, nrow, ncol)
     if not 0 <= memory_k <= MAX_MEMORY_K:
         raise ValueError(f'memory_k must be in [0, {MAX_MEMORY_K}] for the '
                          f'chunk kernel, got {memory_k}')
@@ -106,8 +103,9 @@ def _check(table, restr, dirp, r, c, mem, alive, palive, u, presence,
         ('alive', alive, torch.bool, (n,)),
         ('palive', palive, torch.bool, (n,)),
         ('u', u, torch.float32, (steps, n)),
-        ('table', table, table.dtype, tuple(table.shape)),
         ('presence', presence, torch.int32, (nrow, ncol))]
+    if table is not None:
+        expected.append(('table', table, table.dtype, tuple(table.shape)))
     if emit is not None:
         expected += [('emit positions', emit[0], torch.int16, (steps, n, 2)),
                      ('emit flags', emit[1], torch.bool, (steps, n))]
@@ -122,7 +120,7 @@ def _check(table, restr, dirp, r, c, mem, alive, palive, u, presence,
             raise ValueError(f'{name} must be contiguous')
 
 
-def fused_chunk(table: torch.Tensor, restr: torch.Tensor,
+def fused_chunk(table: Optional[torch.Tensor], restr: torch.Tensor,
                 dirp: torch.Tensor, r: torch.Tensor, c: torch.Tensor,
                 mem: torch.Tensor, alive: torch.Tensor, palive: torch.Tensor,
                 u: torch.Tensor, presence: torch.Tensor, *, nu: float,
@@ -134,7 +132,9 @@ def fused_chunk(table: torch.Tensor, restr: torch.Tensor,
     Parameters
     ----------
     table : (nrow*ncol, 9) float32 or bfloat16 prepared move weights
-        (``agents.simulate.prepared_weights``)
+        (``agents.simulate.prepared_weights``); None for the directed
+        random walk, whose weights are ``dirp`` with its center zeroed in
+        every cell
     restr : (9, 9) float32 restriction table (``agents.moves``)
     dirp : (9,) float32 directional prior
     r, c : (N,) int32 carried positions, UPDATED IN PLACE
@@ -170,14 +170,13 @@ def fused_chunk(table: torch.Tensor, restr: torch.Tensor,
         return
     from .._build import load_library
     lib = load_library()
-    launch = (lib.ssrs_fused_chunk_bf16 if table.dtype == torch.bfloat16
-              else lib.ssrs_fused_chunk_f32)
+    launch, table_ptr = table_launch_args(lib, 'fused_chunk', table)
     nrow, ncol = presence.shape
     emit_pos, emit_alive = (None, None) if emit is None else \
         (emit[0].data_ptr(), emit[1].data_ptr())
     with torch.cuda.device(presence.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(table.data_ptr(), restr.data_ptr(), dirp.data_ptr(),
+        err = launch(table_ptr, restr.data_ptr(), dirp.data_ptr(),
                      r.data_ptr(), c.data_ptr(), mem.data_ptr(),
                      alive.data_ptr(), palive.data_ptr(), u.data_ptr(),
                      presence.data_ptr(), emit_pos, emit_alive, n, nrow,

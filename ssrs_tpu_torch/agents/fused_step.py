@@ -22,7 +22,7 @@ gather and the presence histogram that sat beside that kernel in XLA
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,7 +61,7 @@ def alive_and_push(step: int, alive: torch.Tensor, r: torch.Tensor,
     return alive, pr, pc
 
 
-def fused_step_plain(table: torch.Tensor, restr: torch.Tensor,
+def fused_step_plain(table: Optional[torch.Tensor], restr: torch.Tensor,
                      dirp: torch.Tensor, pr: torch.Tensor, pc: torch.Tensor,
                      r: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
                      palive: torch.Tensor, mem: torch.Tensor, u: torch.Tensor,
@@ -77,11 +77,14 @@ def fused_step_plain(table: torch.Tensor, restr: torch.Tensor,
     flat = torch.where(sel, r.long() * ncol + c.long(), 0)
     presence.view(-1).index_add_(0, flat, sel.to(presence.dtype))
 
-    base = table[pr.long() * ncol + pc.long()].to(torch.float32).T  # (9, n)
-    center0 = torch.ones(9, 1, dtype=torch.float32, device=base.device)
+    center0 = torch.ones(9, 1, dtype=torch.float32, device=r.device)
     center0[4] = 0.
     dirp_col = dirp.to(torch.float32)[:, None]
-    p = base
+    if table is None:
+        # no table (the directed random walk): the prior, center zeroed
+        p = (dirp_col * center0).expand(9, n)
+    else:
+        p = table[pr.long() * ncol + pc.long()].to(torch.float32).T  # (9, n)
     if memory_k > 0:
         mask = restr[mem[0].long()].T
         for k in range(1, memory_k):
@@ -122,6 +125,27 @@ def fused_step_plain(table: torch.Tensor, restr: torch.Tensor,
     return new_r, new_c, new_mem
 
 
+def check_table(table, nrow: int, ncol: int) -> None:
+    """A weight table is None (no table) or float32 or bfloat16 of shape
+    ``(nrow*ncol, 9)``."""
+    if table is not None and (
+            table.dtype not in (torch.float32, torch.bfloat16)
+            or tuple(table.shape) != (nrow * ncol, 9)):
+        raise ValueError('table must be None or float32 or bfloat16 of '
+                         f'shape ({nrow * ncol}, 9), got {table.dtype} '
+                         f'{tuple(table.shape)}')
+
+
+def table_launch_args(lib, name: str, table):
+    """(the kernel entry point ``ssrs_<name>_<dtype>`` for ``table``'s
+    dtype, its table pointer): a missing table is a null pointer to the
+    float32 entry."""
+    if table is None:
+        return getattr(lib, f'ssrs_{name}_f32'), None
+    suffix = 'bf16' if table.dtype == torch.bfloat16 else 'f32'
+    return getattr(lib, f'ssrs_{name}_{suffix}'), table.data_ptr()
+
+
 def _check(table, restr, dirp, pr, pc, r, c, alive, palive, mem, u,
            presence, memory_k):
     if presence.dim() != 2 or presence.dtype != torch.int32:
@@ -129,11 +153,7 @@ def _check(table, restr, dirp, pr, pc, r, c, alive, palive, mem, u,
                          f'got {presence.dtype} {tuple(presence.shape)}')
     nrow, ncol = presence.shape
     n = r.shape[0]
-    if table.dtype not in (torch.float32, torch.bfloat16) or \
-            tuple(table.shape) != (nrow * ncol, 9):
-        raise ValueError('table must be float32 or bfloat16 of shape '
-                         f'({nrow * ncol}, 9), got {table.dtype} '
-                         f'{tuple(table.shape)}')
+    check_table(table, nrow, ncol)
     if memory_k < 0:
         raise ValueError(f'memory_k must be >= 0, got {memory_k}')
     expected = {
@@ -151,7 +171,8 @@ def _check(table, restr, dirp, pr, pc, r, c, alive, palive, mem, u,
             raise ValueError(f'{name} must be {dtype} of shape {shape}, '
                              f'got {t.dtype} {tuple(t.shape)}')
     dev = presence.device
-    for name, t in [('table', table), ('presence', presence),
+    tables = [] if table is None else [('table', table)]
+    for name, t in [*tables, ('presence', presence),
                     *[(k, v[0]) for k, v in expected.items()]]:
         if t.device != dev:
             raise ValueError(f'{name} is on {t.device}, presence on {dev}')
@@ -159,18 +180,20 @@ def _check(table, restr, dirp, pr, pc, r, c, alive, palive, mem, u,
             raise ValueError(f'{name} must be contiguous')
 
 
-def fused_step(table: torch.Tensor, restr: torch.Tensor, dirp: torch.Tensor,
-               pr: torch.Tensor, pc: torch.Tensor, r: torch.Tensor,
-               c: torch.Tensor, alive: torch.Tensor, palive: torch.Tensor,
-               mem: torch.Tensor, u: torch.Tensor, presence: torch.Tensor,
-               *, nu: float, memory_k: int
+def fused_step(table: Optional[torch.Tensor], restr: torch.Tensor,
+               dirp: torch.Tensor, pr: torch.Tensor, pc: torch.Tensor,
+               r: torch.Tensor, c: torch.Tensor, alive: torch.Tensor,
+               palive: torch.Tensor, mem: torch.Tensor, u: torch.Tensor,
+               presence: torch.Tensor, *, nu: float, memory_k: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused agent step over the whole population.
 
     Parameters
     ----------
     table : (nrow*ncol, 9) float32 or bfloat16 prepared move weights
-        (``agents.simulate.prepared_weights``), gathered at ``pr*ncol+pc``
+        (``agents.simulate.prepared_weights``), gathered at
+        ``pr*ncol+pc``; None for the directed random walk, whose weights
+        are ``dirp`` with its center zeroed in every cell
     restr : (9, 9) float32 restriction table; row m = moves allowed
         after move m (``agents.moves.restriction_table``)
     dirp : (9,) float32 directional prior
@@ -203,8 +226,7 @@ def fused_step(table: torch.Tensor, restr: torch.Tensor, dirp: torch.Tensor,
                          f'{presence.device}')
     from .._build import load_library
     lib = load_library()
-    launch = (lib.ssrs_fused_step_bf16 if table.dtype == torch.bfloat16
-              else lib.ssrs_fused_step_f32)
+    launch, table_ptr = table_launch_args(lib, 'fused_step', table)
     nrow, ncol = presence.shape
     n = r.shape[0]
     new_r = torch.empty_like(r)
@@ -212,7 +234,7 @@ def fused_step(table: torch.Tensor, restr: torch.Tensor, dirp: torch.Tensor,
     new_mem = torch.empty_like(mem)
     with torch.cuda.device(presence.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(table.data_ptr(), restr.data_ptr(), dirp.data_ptr(),
+        err = launch(table_ptr, restr.data_ptr(), dirp.data_ptr(),
                      pr.data_ptr(), pc.data_ptr(), r.data_ptr(),
                      c.data_ptr(), alive.data_ptr(), palive.data_ptr(),
                      mem.data_ptr(), u.data_ptr(), new_r.data_ptr(),

@@ -104,7 +104,8 @@ def resolve_weight_dtype(dtype: str, grid_shape) -> str:
 
 def harmonic_mean_weights(updraft: torch.Tensor,
                           potential: Optional[torch.Tensor]) -> torch.Tensor:
-    """Per-cell move weights ``(nrow, ncol, 9)`` in float32.
+    """Per-cell move weights ``(..., nrow, ncol, 9)`` in float32, of one
+    ``(nrow, ncol)`` field pair or of a stack of them.
 
     base[r, c, m] = hm(w[r, c], w[r+dr, c+dc])
                     * [(p[r, c] - p[r+dr, c+dc]) / ||d||  if potential given]
@@ -114,18 +115,18 @@ def harmonic_mean_weights(updraft: torch.Tensor,
     cells get NaN weights, which prepared_weights replaces).
     """
     w = torch.clamp(updraft.to(torch.float32), min=1e-6)
-    nrow, ncol = w.shape
-    wpad = F.pad(w[None, None], (1, 1, 1, 1), value=1e-6)[0, 0]
+    nrow, ncol = w.shape[-2:]
+    wpad = F.pad(w, (1, 1, 1, 1), value=1e-6)
     if potential is not None:
         p = potential.to(device=w.device, dtype=torch.float32)
-        ppad = F.pad(p[None, None], (1, 1, 1, 1), value=float('nan'))[0, 0]
+        ppad = F.pad(p, (1, 1, 1, 1), value=float('nan'))
     layers = []
     for m in range(9):
         dr, dc = int(NEIGHBOR_DELTAS[m, 0]), int(NEIGHBOR_DELTAS[m, 1])
-        wn = wpad[dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
+        wn = wpad[..., dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
         hm = 2.0 / (1.0 / w + 1.0 / wn)
         if potential is not None:
-            pn = ppad[dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
+            pn = ppad[..., dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
             hm = hm * (p - pn) * float(NEIGHBOR_NORMS_INV[m])
         elif m == 4:
             hm = torch.zeros_like(hm)
@@ -146,12 +147,32 @@ def prepared_weights(updraft: torch.Tensor,
     (``.to(torch.bfloat16)`` rounds to nearest even, as XLA does).
     """
     dtype = resolve_weight_dtype(dtype, updraft.shape)
+    return _prepared_weights_body(updraft, potential, dirp, dtype)
+
+
+def _prepared_weights_body(updraft, potential, dirp, dtype: str):
+    """The table(s) of ``(..., nrow, ncol)`` fields and ``(..., 9)``
+    priors, ``(..., nrow*ncol, 9)`` in the resolved ``dtype``: elementwise
+    over the leading axes, so a stack gives each case the bits of its own
+    call."""
     base = harmonic_mean_weights(updraft, potential)
     center0 = torch.from_numpy(CENTER_ZERO).to(base.device)
     base = torch.clamp(base, min=0.) * center0
     row_nan = torch.isnan(base).any(dim=-1, keepdim=True)
-    base = torch.where(row_nan, dirp.to(base.device) * center0, base)
-    return base.reshape(-1, 9).to(_TORCH_DTYPES[dtype]).contiguous()
+    prior = (dirp.to(base.device) * center0)[..., None, None, :]
+    base = torch.where(row_nan, prior, base)
+    return base.reshape(*base.shape[:-3], -1, 9).to(
+        _TORCH_DTYPES[dtype]).contiguous()
+
+
+def prepared_weights_batch(updrafts: torch.Tensor, potentials: torch.Tensor,
+                           dirps: torch.Tensor, dtype: str) -> torch.Tensor:
+    """All C cases' weight tables at once: ``(C, nrow, ncol)`` updrafts
+    and potentials and ``(C, 9)`` priors give the ``(C, nrow*ncol, 9)``
+    tables, each equal bit for bit to its own :func:`prepared_weights`
+    call."""
+    dtype = resolve_weight_dtype(dtype, updrafts.shape[1:])
+    return _prepared_weights_body(updrafts, potentials, dirps, dtype)
 
 
 def weights_from_numpy(table: np.ndarray, device) -> torch.Tensor:
@@ -256,12 +277,14 @@ def flush_pending(state: SimState) -> SimState:
     return dataclasses.replace(state, palive=palive)
 
 
-def make_step_fn(params: TrackParams, base_flat: torch.Tensor,
+def make_step_fn(params: TrackParams, base_flat: Optional[torch.Tensor],
                  dirp: torch.Tensor, restr: torch.Tensor):
     """The per-step transition ``step(state, u=None, generator=None)``.
 
     ``base_flat`` is the ``(nrow*ncol, 9)`` table from
-    :func:`prepared_weights`; ``restr`` the (9, 9) restriction table.
+    :func:`prepared_weights`, or None for the directed random walk (every
+    cell's weights are ``dirp`` with its center zeroed); ``restr`` the
+    (9, 9) restriction table.
     Uniforms ``u`` may be injected; otherwise they are drawn from
     ``generator``. Callers must :func:`flush_pending` at the end.
     """
@@ -291,12 +314,13 @@ def make_step_fn(params: TrackParams, base_flat: torch.Tensor,
 UNIFORM_BLOCK = 2 ** 26
 
 
-def make_chunk_fn(params: TrackParams, base_flat: torch.Tensor,
+def make_chunk_fn(params: TrackParams, base_flat: Optional[torch.Tensor],
                   dirp: torch.Tensor, restr: torch.Tensor):
     """The chunk transition ``advance(state, steps, generator, emit=None)``.
 
-    It runs ``steps`` steps from ``state.step`` and returns the state with
-    the step counter advanced (saturating at the cap). Each launch of the
+    ``base_flat`` as in :func:`make_step_fn`. It runs ``steps`` steps from
+    ``state.step`` and returns the state with the step counter advanced
+    (saturating at the cap). Each launch of the
     chunk kernel (``agents/fused_chunk.py``) covers up to
     ``UNIFORM_BLOCK // N`` steps, whose uniforms it draws from
     ``generator`` as one ``(T, N)`` block; the state tensors are updated
@@ -398,17 +422,15 @@ def _prologue(params: TrackParams, start_rc, generator: torch.Generator,
     """The initial state and the chunk function (:func:`make_chunk_fn`;
     the step function of :func:`make_step_fn` unless ``chunked``) of a
     driver, on ``generator.device``; the weight table is built from
-    ``updraft`` and ``potential`` unless ``base_flat`` is given."""
+    ``updraft`` and ``potential`` unless ``base_flat`` is given. With
+    neither a table nor an updraft the run has no table: the directed
+    random walk."""
     device = generator.device
     if dirp is None:
         dirp = torch.from_numpy(directional_probs(params.move_dirn))
-    dirp = dirp.to(device=device, dtype=torch.float32)
+    dirp = torch.as_tensor(dirp).to(device=device, dtype=torch.float32)
     restr = torch.from_numpy(restriction_table()).to(device)
-    if base_flat is None:
-        if updraft is None:
-            raise NotImplementedError(
-                "the directed random walk ('drw', no weight table) is not "
-                'ported yet (ROADMAP.md)')
+    if base_flat is None and updraft is not None:
         updraft = torch.as_tensor(updraft, dtype=torch.float32,
                                   device=device)
         if potential is not None:
@@ -484,8 +506,9 @@ def simulate_presence_compacting(params: TrackParams, start_rc,
 
     Runs on ``generator.device``. ``base_flat``: an already-prepared
     ``(nrow*ncol, 9)`` weight table; when given, ``updraft`` and
-    ``potential`` are ignored. ``dirp`` optionally overrides the
-    directional prior derived from ``params.move_dirn``.
+    ``potential`` are ignored. With neither a table nor an updraft the
+    run is the directed random walk (no table). ``dirp`` optionally
+    overrides the directional prior derived from ``params.move_dirn``.
 
     A Python loop over chunks of ``chunk`` steps (each one launch of the
     chunk kernel per ``UNIFORM_BLOCK`` uniforms, :func:`make_chunk_fn`)
@@ -509,13 +532,143 @@ def simulate_presence_compacting(params: TrackParams, start_rc,
         state = advance(state, min(chunk, params.nsteps - state.step),
                         generator)
         n_alive = int(state.alive.sum())
-        cur = state.pos_r.shape[0]
-        if n_alive > 0 and cur > floor:
-            m = _bucket_for(n_alive, min_bucket)
-            if m < cur:
-                state, _ = _compact_body(state, m)
+        state = _shrink(state, n_alive, floor, min_bucket)
     state = flush_pending(state)
     return state.presence, state.step
+
+
+def _shrink(state: SimState, n_alive: int, floor: int,
+            min_bucket: int) -> SimState:
+    """The compacting drivers' decision after a chunk: a population above
+    ``floor`` slots whose ``n_alive`` survivors fit a smaller bucket is
+    packed into it."""
+    cur = state.pos_r.shape[0]
+    if n_alive > 0 and cur > floor:
+        m = _bucket_for(n_alive, min_bucket)
+        if m < cur:
+            state, _ = _compact_body(state, m)
+    return state
+
+
+def _case_starts(start_rc, n_cases: int):
+    """The cases drivers' starts, one entry a case: shared ``(N, 2)``
+    starts (an array, or a nested list of ``[r, c]`` pairs), ``(C, N, 2)``
+    per-case starts, or a list or tuple of C ``(N, 2)`` arrays."""
+    if isinstance(start_rc, (list, tuple)) \
+            and all(np.ndim(s) == 2 for s in start_rc):
+        if len(start_rc) != n_cases:
+            raise ValueError(
+                f'per-case start_rc list has {len(start_rc)} entries '
+                f'for {n_cases} cases')
+        return list(start_rc)
+    if not isinstance(start_rc, torch.Tensor):
+        start_rc = np.asarray(start_rc)
+    if start_rc.ndim not in (2, 3):
+        raise ValueError(
+            'start_rc must be (N, 2) shared starts or (C, N, 2) '
+            f'per-case starts; got shape {tuple(start_rc.shape)}')
+    if start_rc.ndim == 2:
+        return [start_rc] * n_cases
+    if len(start_rc) != n_cases:
+        raise ValueError(
+            f'per-case start_rc has {len(start_rc)} entries for '
+            f'{n_cases} cases')
+    return [start_rc[i] for i in range(n_cases)]
+
+
+def simulate_presence_cases(params: TrackParams, base_tables, dirps,
+                            start_rc, generators, chunk: int = 128):
+    """Multi-case simulation without compaction (the counterpart of the
+    JAX package's vmapped ``simulate_presence_cases``): case i is one run
+    of :func:`simulate_presence` with ``base_tables[i]``, ``dirps[i]``,
+    its starts (:func:`_case_starts`) and ``generators[i]``.
+
+    Returns (presence int32 (C, nrow, ncol) on the device, steps int32
+    (C,) numpy).
+    """
+    starts = _case_starts(start_rc, len(base_tables))
+    runs = [simulate_presence(params, starts[i], generators[i], chunk=chunk,
+                              base_flat=base_tables[i], dirp=dirps[i])
+            for i in range(len(base_tables))]
+    return (torch.stack([p for p, _ in runs]),
+            np.array([s for _, s in runs], np.int32))
+
+
+def simulate_presence_cases_compacting(params: TrackParams, base_tables,
+                                       start_rc, generators,
+                                       dirps=None,
+                                       chunk: int = 512,
+                                       min_bucket: int = 1024,
+                                       tail_bucket=0,
+                                       valid=None):
+    """Multi-case presence simulation: the seasonal and sweep production
+    path. Every case runs the compacting pipeline of
+    :func:`simulate_presence_compacting` (chunk kernel, dead-agent
+    compaction, early exit of its own), ROUND-ROBIN INTERLEAVED: each
+    round enqueues one chunk and its alive count for every case still
+    active before it reads any case's count, so the card works through
+    the other cases' chunks while the host waits for one count and packs
+    that case.
+
+    Case i draws from ``generators[i]`` exactly as the single-case driver
+    would: its result is bit-identical to
+    :func:`simulate_presence_compacting` with a generator of the same
+    seed, the same table and the same starts.
+
+    Parameters
+    ----------
+    base_tables : (C, nrow*ncol, 9) stacked prepared tables
+        (:func:`prepared_weights_batch`), or a list of C tables; an entry
+        may be None (no table: the directed random walk)
+    start_rc : (N, 2) shared starts, (C, N, 2) per-case starts, or a list
+        of C (N, 2) arrays; every case's state owns copies of them
+    generators : C ``torch.Generator``s on one device, where the run
+        takes place
+    dirps : optional (C, 9) per-case directional priors; None derives the
+        shared prior from ``params.move_dirn``
+    tail_bucket : as in :func:`simulate_presence_compacting`
+
+    What bounds C is device memory: each case holds its table, its state
+    and its map for the whole run, and a chunk's uniforms while it is in
+    flight, up to ``UNIFORM_BLOCK`` float32 values (256 MiB; 205 MB at
+    100,000 agents and 512 steps). All cases run on the caller's stream,
+    where the allocator hands one such block from case to case, so a round
+    may hold fewer than C blocks, and C x 256 MiB at most.
+
+    Returns (presence int32 (C, nrow, ncol) on the device, steps int32
+    (C,) numpy).
+    """
+    n_cases = len(base_tables)
+    starts = _case_starts(start_rc, n_cases)
+    floor = max(min_bucket, _norm_tail_bucket(tail_bucket, min_bucket))
+    states, advances = {}, {}
+    for i in range(n_cases):
+        states[i], advances[i] = _prologue(
+            params, starts[i], generators[i], None, None, valid,
+            base_tables[i], None if dirps is None else dirps[i])
+    active = list(range(n_cases))
+    while active:
+        # enqueue: one chunk and its alive count for every active case;
+        # nothing here waits for the card
+        counts = {}
+        for i in active:
+            st = states[i]
+            states[i] = advances[i](
+                st, min(chunk, params.nsteps - st.step), generators[i])
+            counts[i] = states[i].alive.sum()
+        # read: the card runs the later cases' chunks while the host
+        # reads and packs the earlier ones
+        still = []
+        for i in active:
+            n_alive = int(counts[i])
+            if states[i].step >= params.nsteps or n_alive == 0:
+                states[i] = flush_pending(states[i])
+            else:
+                states[i] = _shrink(states[i], n_alive, floor, min_bucket)
+                still.append(i)
+        active = still
+    return (torch.stack([states[i].presence for i in range(n_cases)]),
+            np.array([states[i].step for i in range(n_cases)], np.int32))
 
 
 class RecordedRun(NamedTuple):

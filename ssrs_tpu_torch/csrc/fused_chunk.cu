@@ -26,9 +26,11 @@
 // neither bound is reached. At 10k agents 512 steps take 0.48 ms, ~0.9
 // us a step: the dependent chain. At 100k they take 1.24-1.27 ms, ~26 ps
 // of device time per live agent-step in every 64-step window, the
-// crowded burn-in included: a throughput cost per agent-step (most
-// likely the nine scalar, uncoalesced loads of a table row), not the
-// atomics.
+// crowded burn-in included, so the atomics' crowding is not the cost;
+// and with a null table (no row loads at all) 100k agents cost ~30 ps
+// per live agent-step too, so the row gather is not the cost either.
+// What is left is a step's dependent arithmetic, its uniform load and
+// its atomic, with 24 warps an SM to hide them.
 //
 // What the design does about it:
 // - one thread per agent, T steps in a loop inside the thread: agents
@@ -53,6 +55,10 @@
 //   32-bit (int16 row, int16 col) store and its alive flag one byte, into
 //   the chunk's emission buffer; both pointers are null on the counts-only
 //   path.
+// - a null table is the directed random walk (ssrs_tpu's step without a
+//   table, ssrs_tpu/agents/simulate.py:510-515): the weights of every cell
+//   are the prior with its center zeroed, taken from shared memory, and no
+//   table byte is read; the branch is uniform over the launch.
 // The arithmetic is fused_step.cu's, in the same order, and the build
 // passes -fmad=false, so the moves equal the plain PyTorch version's.
 
@@ -83,7 +89,7 @@ __device__ __forceinline__ uint32_t pack_rc(int r, int c) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_chunk_kernel(const T* __restrict__ table,      // (nrow*ncol, 9)
+fused_chunk_kernel(const T* __restrict__ table,      // (nrow*ncol, 9) or null
                    const float* __restrict__ restr,  // (9, 9) row m: allowed after move m
                    const float* __restrict__ dirp,   // (9,) directional prior
                    int32_t* __restrict__ r,          // (n,) carried row, updated
@@ -153,10 +159,17 @@ fused_chunk_kernel(const T* __restrict__ table,      // (nrow*ncol, 9)
       if (t + 1 < steps) {
         u_next = __ldcs(u + static_cast<int64_t>(t + 1) * n + i);
       }
-      const int64_t row = (static_cast<int64_t>(pri) * ncol + pci) * 9;
       float p[9];
+      if (table != nullptr) {
+        const int64_t row = (static_cast<int64_t>(pri) * ncol + pci) * 9;
 #pragma unroll
-      for (int j = 0; j < 9; ++j) p[j] = load_weight(table, row + j);
+        for (int j = 0; j < 9; ++j) p[j] = load_weight(table, row + j);
+      } else {
+        // no table (the directed random walk): every cell's weights are
+        // the directional prior with the center zeroed, in float32
+#pragma unroll
+        for (int j = 0; j < 9; ++j) p[j] = j == 4 ? 0.f : s_dirp[j];
+      }
 
       // fallback cascade (ssrs/movmodel.py:233-241); the NaN/clip/center
       // prologue is already folded into the table

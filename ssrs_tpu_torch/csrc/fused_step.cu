@@ -20,6 +20,9 @@
 //   in shared memory (the TPU kernel used one-hot MXU dots);
 // - presence is an int32 atomicAdd into the (nrow, ncol) map, which
 //   replaces the one-hot MXU histogram and its VMEM-fit regimes.
+// - a null table is the directed random walk (ssrs_tpu's step without a
+//   table, ssrs_tpu/agents/simulate.py:510-515): the weights of every cell
+//   are the prior with its center zeroed, and no table byte is read.
 // The arithmetic keeps the TPU kernel's order (sequential running sum,
 // total as a sequential sum, nu != 1 as p/pmax then exp(nu*log(p))); the
 // build passes -fmad=false so nvcc cannot contract a product into a sum,
@@ -50,7 +53,7 @@ __device__ __forceinline__ float load_weight(const __nv_bfloat16* table,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-fused_step_kernel(const T* __restrict__ table,      // (nrow*ncol, 9)
+fused_step_kernel(const T* __restrict__ table,      // (nrow*ncol, 9) or null
                   const float* __restrict__ restr,  // (9, 9) row m: allowed after move m
                   const float* __restrict__ dirp,   // (9,) directional prior
                   const int32_t* __restrict__ pr,   // (n,) row after the burn-in push
@@ -102,10 +105,17 @@ fused_step_kernel(const T* __restrict__ table,      // (nrow*ncol, 9)
 
   const int pri = pr[i];
   const int pci = pc[i];
-  const int64_t row = (static_cast<int64_t>(pri) * ncol + pci) * 9;
   float p[9];
+  if (table != nullptr) {
+    const int64_t row = (static_cast<int64_t>(pri) * ncol + pci) * 9;
 #pragma unroll
-  for (int j = 0; j < 9; ++j) p[j] = load_weight(table, row + j);
+    for (int j = 0; j < 9; ++j) p[j] = load_weight(table, row + j);
+  } else {
+    // no table (the directed random walk): every cell's weights are the
+    // directional prior with the center zeroed, in float32
+#pragma unroll
+    for (int j = 0; j < 9; ++j) p[j] = j == 4 ? 0.f : s_dirp[j];
+  }
 
   // fallback cascade (ssrs/movmodel.py:233-241); the NaN/clip/center
   // prologue is already folded into the table

@@ -1,19 +1,23 @@
 """The ``Simulator`` facade of the port, in uniform mode.
 
-The PyTorch counterpart of ``ssrs_tpu/simulator.py`` for one slice: the
-uniform-mode ``fluidflow`` run, with the directional potential from the
-refined solver on the run's device (``potential_solver='auto'``, the
-default, or ``'refined'``) or from the host float64 direct solve
-(``'direct'``, ``'dense'``), with recorded trajectories for runs up to
-``track_pkl_budget`` tracks (the default ``track_count``) and presence
-counts alone above. It keeps the JAX package's constructor flow (region
--> terrain -> orographic updraft), its output-directory layout and its
-artifact names and formats (``*_orograph.npy``, ``*_potential.npy``,
+The PyTorch counterpart of ``ssrs_tpu/simulator.py`` for uniform mode:
+the ``fluidflow`` run, with the directional potential from the refined
+solver on the run's device (``potential_solver='auto'``, the default, or
+``'refined'``) or from the host float64 direct solve (``'direct'``,
+``'dense'``), and the directed random walk (``'drw'``, no potential);
+thermal realizations (``thermals_realization_count``); the wind-direction
+sweep (``simulate_direction_sweep``); recorded trajectories for runs up
+to ``track_pkl_budget`` tracks (the default ``track_count``) and presence
+counts alone above, where several (case, realization) populations go
+through the interleaved multi-case driver. It keeps the JAX package's
+constructor flow (region -> terrain -> orographic updraft -> thermals),
+its output-directory layout and its artifact names and formats
+(``*_orograph.npy``, ``*_thermals.npy``, ``*_potential.npy``,
 ``*_tracks.pkl``, ``*_counts.npy``, ``summary_presence.npy``,
 ``phase_timings.json``), so one package's cached fields feed the other.
 
-Every configuration outside the slice raises ``NotImplementedError``
-naming its item in ROADMAP.md. Turbines (USWTDB) and plotting are not
+Every configuration not ported yet raises ``NotImplementedError`` naming
+its item in ROADMAP.md. Turbines (USWTDB) and plotting are not
 ported; the terrain is the offline synthetic DEM.
 """
 from __future__ import annotations
@@ -34,13 +38,16 @@ from .core.rng import case_generator
 from .core.timing import PhaseTimer, elapsed_str
 from .agents.presence import (card_or_raise, compute_presence_counts,
                               smooth_presence)
-from .agents.simulate import (TrackParams, simulate_presence_compacting,
+from .agents.moves import directional_probs
+from .agents.simulate import (TrackParams, prepared_weights_batch,
+                              simulate_presence_cases_compacting,
+                              simulate_presence_compacting,
                               simulate_tracks_recorded)
 from .agents.starts import get_starting_indices
 from .data import (Terrain, get_raster_in_projected_crs, transform_bounds,
                    transform_coordinates)
 from .fields import (compute_orographic_updraft,
-                     compute_slope_aspect_degrees,
+                     compute_slope_aspect_degrees, compute_thermals,
                      get_above_threshold_speed)
 from .potential.boundary import boundary_masks
 from .potential.direct import fallback_cost_estimate, solve_potential_direct
@@ -48,21 +55,13 @@ from .utils import makedir_if_not_exists
 
 
 def _check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError for a configuration outside the slice."""
+    """Raise NotImplementedError for a configuration not ported yet."""
     todo = 'ROADMAP.md, "Modules still to port"'
     if str(cfg.sim_mode).lower() != 'uniform':
         raise NotImplementedError(
             f'sim_mode={cfg.sim_mode!r}: only uniform mode is ported; '
-            f'snapshot and seasonal modes (WTK) wait ({todo}: WTK, '
-            'multi-case)')
-    if int(cfg.thermals_realization_count) > 0:
-        raise NotImplementedError(
-            'thermals_realization_count > 0: thermals are not ported yet '
-            f'({todo}: thermals)')
-    if cfg.movement_model != 'fluidflow':
-        raise NotImplementedError(
-            f'movement_model={cfg.movement_model!r}: only fluidflow is '
-            f"ported; the directed random walk 'drw' waits ({todo})")
+            f'snapshot and seasonal modes wait for WTK ({todo}: data '
+            'sources)')
     solver = (cfg.potential_solver or 'auto').lower()
     if solver in ('mg', 'multigrid'):
         raise NotImplementedError(
@@ -159,6 +158,10 @@ class Simulator(Config):
         self.case_ids = [self._get_uniform_id()]
         with self.timer.phase('updrafts'):
             self.compute_orographic_updraft_uniform()
+        with self.timer.phase('thermals', realizations=int(
+                self.thermals_realization_count)):
+            for case_id in self.case_ids:
+                self.compute_thermal_updrafts(case_id)
         print('SSRS Simulator initiation done.')
 
     # ---- terrain ---------------------------------------------------------
@@ -189,50 +192,85 @@ class Simulator(Config):
 
     # ---- updrafts --------------------------------------------------------
 
+    def _orograph(self, slope, aspect, winddirn: float) -> torch.Tensor:
+        """Uniform-wind orographic updraft for one wind direction."""
+        return compute_orographic_updraft(
+            torch.full(self.gridsize, float(self.uniform_windspeed),
+                       dtype=torch.float32, device=self.device),
+            torch.full(self.gridsize, float(winddirn),
+                       dtype=torch.float32, device=self.device),
+            slope, aspect)
+
     def compute_orographic_updraft_uniform(self) -> None:
         """Uniform-mode orographic updraft (ssrs/simulator.py:189-198)."""
         print('Computing orographic updrafts..')
         slope, aspect = self._slope_aspect()
-        orograph = compute_orographic_updraft(
-            torch.full(self.gridsize, float(self.uniform_windspeed),
-                       dtype=torch.float32, device=self.device),
-            torch.full(self.gridsize, float(self.uniform_winddirn),
-                       dtype=torch.float32, device=self.device),
-            slope, aspect)
+        orograph = self._orograph(slope, aspect, self.uniform_winddirn)
         fname = self._get_orograph_fname(self.case_ids[0],
                                          self.mode_data_dir)
         np.save(f'{fname}.npy', orograph.cpu().numpy().astype(np.float32))
 
-    def load_updrafts(self, case_id: str,
-                      apply_threshold: bool = True) -> List[torch.Tensor]:
-        """Orographic updraft of a case on the device, optionally
-        thresholded (ssrs/simulator.py:230-243; no thermals)."""
+    def compute_thermal_updrafts(self, case_id: str) -> None:
+        """Thermal realizations (ssrs/simulator.py:217-228), each from
+        its own generator of the seed hierarchy, saved as
+        ``{case}_r{real}_thermals.npy``."""
+        if self.thermals_realization_count > 0:
+            print('Computing thermal updrafts...', flush=True)
+            aspect = self._slope_aspect()[1]
+            for real_id in range(self.thermals_realization_count):
+                gen = case_generator(self.sim_seed, case_id, real_id,
+                                     'thermals', self.device)
+                thermals = compute_thermals(gen, aspect, 2.0)
+                fname = self._get_thermal_fname(case_id, real_id,
+                                                self.mode_data_dir)
+                np.save(f'{fname}.npy',
+                        thermals.cpu().numpy().astype(np.float32))
+        else:
+            print('No thermals requested!', flush=True)
+
+    def load_updrafts(self, case_id: str, apply_threshold: bool = True,
+                      device: bool = True) -> list:
+        """Orographic [+ thermal] updrafts of a case, optionally
+        thresholded (ssrs/simulator.py:230-243): the orograph, then the
+        orograph plus each thermal realization. The threshold runs on the
+        run's device either way; ``device=True`` returns the fields as
+        tensors there, ``device=False`` as numpy arrays (the
+        host-materialized prep of ``Config.fields_device=False``)."""
         fname = self._get_orograph_fname(case_id, self.mode_data_dir)
-        orograph = torch.from_numpy(np.load(f'{fname}.npy')).to(self.device)
+        orograph = np.load(f'{fname}.npy')
+        updrafts = [orograph]
+        for real_id in range(int(self.thermals_realization_count)):
+            fname = self._get_thermal_fname(case_id, real_id,
+                                            self.mode_data_dir)
+            updrafts.append(orograph + np.load(f'{fname}.npy'))
+        updrafts = [torch.from_numpy(ix).to(self.device) for ix in updrafts]
         if apply_threshold:
-            orograph = get_above_threshold_speed(orograph,
-                                                 self.updraft_threshold)
-        return [orograph]
+            updrafts = [get_above_threshold_speed(ix, self.updraft_threshold)
+                        for ix in updrafts]
+        return updrafts if device else [ix.cpu().numpy() for ix in updrafts]
 
     def _get_orograph_fname(self, case_id: str, dirname: str = './'):
         return os.path.join(dirname, f'{case_id}_orograph')
 
+    def _get_thermal_fname(self, case_id: str, real_id: int,
+                           dirname: str = './'):
+        return os.path.join(dirname, f'{case_id}_r{real_id}_thermals')
+
     # ---- directional potential ------------------------------------------
 
-    def get_directional_potential(self, updraft: torch.Tensor, case_id,
+    def get_directional_potential(self, updraft, case_id,
                                   real_id) -> np.ndarray:
         """Cached directional-potential solve
         (ssrs/simulator.py:259-288)."""
-        return self._directional_potential(updraft, case_id, real_id)[0]
+        return self.finish_directional_potential(
+            self.begin_directional_potential(updraft, case_id, real_id))
 
-    def _directional_potential(self, updraft, case_id, real_id):
-        """(host potential, device potential or None, info): ``info`` is
-        the ``potential`` record's solver (``'refined'``, ``'direct'`` or
-        ``'cache'``), ``rrel``, ``fallback``, refinement ``passes`` and
-        ``vcycles``."""
+    def _check_potential_cache(self, case_id, real_id):
+        """Returns (cached-state-or-None, fname, id_str)."""
         fname = self._get_potential_fname(case_id, real_id,
                                           self.mode_data_dir)
         id_str = self._get_id_string(case_id, real_id)
+        start_time = time.time()
         try:
             potential = np.load(f'{fname}.npy')
             if potential.shape != tuple(self.gridsize):
@@ -240,18 +278,107 @@ class Simulator(Config):
             if (self.sim_seed < 0) and (real_id != 0):
                 raise FileNotFoundError
             print(f'{id_str}: Found saved potential')
-            dev, info = None, _solve_info('cache')
+            handle = ('done', potential, {
+                **_solve_info('cache'), 'seconds': time.time() - start_time})
+            return ('cached', handle, fname, id_str, start_time), fname, \
+                id_str
         except FileNotFoundError:
-            start_time = time.time()
-            handle = self._begin_potential_solve(updraft)
-            potential, dev = self._finish_potential_solve_pair(handle)
-            info = handle[-1]
+            return None, fname, id_str
+
+    def begin_directional_potential(self, updraft, case_id, real_id):
+        """Cache check and solve for one (case, realization): returns an
+        opaque handle for :meth:`finish_directional_potential`.
+
+        The JAX package dispatches its solve asynchronously here, so that
+        a multi-case prep overlaps the host work of case *i+1* with the
+        device solve of case *i*. The port's refined solve is
+        SYNCHRONOUS (its iteration reads its exit test on the host,
+        ``potential/lap.py``), so nothing overlaps yet: the solve has run
+        when this returns. The split, its order and the artifacts are
+        kept for the solver that can overlap."""
+        state, fname, id_str = self._check_potential_cache(case_id,
+                                                           real_id)
+        if state is not None:
+            return state
+        start_time = time.time()
+        handle = self._begin_potential_solve(updraft)
+        handle[-1]['seconds'] = time.time() - start_time
+        return ('solve', handle, fname, id_str, start_time)
+
+    def begin_directional_potentials(self, items):
+        """Multi-case prep: cache-check every ``(updraft, case_id,
+        real_id)`` item and solve the uncached ones, one
+        :meth:`finish_directional_potential` handle per item, in order.
+        The JAX package can group the uncached solves into batched
+        programs here (``potential_batch > 1``, which the port refuses:
+        ROADMAP.md, "Not ported, on purpose"), so every item takes the
+        single solve."""
+        return [self.begin_directional_potential(updraft, case_id, real_id)
+                for updraft, case_id, real_id in items]
+
+    def finish_directional_potential(self, state) -> np.ndarray:
+        """Materialize a :meth:`begin_directional_potential` handle: read
+        the residual, apply the float64-fallback policy, save the
+        artifact."""
+        return self._finish_directional_potential_pair(state)[0]
+
+    def _finish_directional_potential_pair(self, state):
+        """finish_directional_potential, returning ``(host, device)``: the
+        host array backs the ``.npy`` artifact; the device tensor (None
+        for cached and fallback results) lets the weight-table build use
+        the solver's own output. Appends the item's ``potential`` phase
+        record: the seconds of its solve and of this call, and the
+        solver's ``solver``, ``rrel``, ``fallback``, ``passes`` and
+        ``vcycles`` (``solver`` is ``'refined'``, ``'direct'`` or
+        ``'cache'``)."""
+        kind, handle, fname, id_str, start_time = state
+        t0 = time.time()
+        potential, dev = self._finish_potential_solve_pair(handle)
+        if kind != 'cached':
             print(f'{id_str}: Computing potential..'
                   f'took {elapsed_str(start_time)}', flush=True)
             np.save(f'{fname}.npy', potential.astype(np.float32))
         if np.isnan(potential).any():
             print('NANs found in potential!')
-        return potential, dev, info
+        info = dict(handle[-1])
+        self.timer.records.append({
+            'phase': 'potential',
+            'seconds': info.pop('seconds', 0.) + time.time() - t0,
+            'id': id_str, **info})
+        return potential, dev
+
+    def _device_fields_fit(self, n_fields: int) -> bool:
+        """Whether the device-resident prep (Config.fields_device) may
+        park ``n_fields`` conductivities AND potentials on the card for
+        the whole prep; past the guard the host-materialized flow runs
+        instead. The guard is the JAX package's: never beyond 4096^2
+        cells, and at most ~1.5 GB resident (2 float32 fields a case)."""
+        if not bool(self.fields_device):
+            return False
+        cells = int(np.prod(self.gridsize))
+        if cells > 4096 * 4096:
+            return False
+        return cells * max(1, n_fields) * 8 <= 1_500_000_000
+
+    def _prepare_potentials(self, items, pairs: bool = False):
+        """Potentials for a list of ``(case_id, real_id, updraft)`` work
+        items, in order, through :meth:`begin_directional_potentials` and
+        finish in windows of the JAX package's bounded finish depth (3, or
+        1 past 4096^2): at most that many unfinished solves are held at
+        once.
+
+        With ``pairs=True`` every element is ``(host, device-or-None)``
+        (see :meth:`_finish_directional_potential_pair`); otherwise
+        plain host arrays."""
+        finish = (self._finish_directional_potential_pair if pairs
+                  else self.finish_directional_potential)
+        out = []
+        depth = 3 if int(np.prod(self.gridsize)) <= 4096 * 4096 else 1
+        for w0 in range(0, len(items), depth):
+            handles = self.begin_directional_potentials(
+                [(upd, cid, rid) for cid, rid, upd in items[w0:w0 + depth]])
+            out.extend(finish(handle) for handle in handles)
+        return out
 
     def _solve_potential(self, conductivity) -> np.ndarray:
         return self._finish_potential_solve_pair(
@@ -351,48 +478,84 @@ class Simulator(Config):
             weight_dtype=str(self.track_weight_precision))
 
     def simulate_tracks(self) -> None:
-        """Simulate all tracks of the uniform case
-        (ssrs/simulator.py:332-386) and save the ``_counts.npy``
-        presence counts; a run of at most ``track_pkl_budget`` tracks
-        also saves its trajectories as ``_tracks.pkl``."""
+        """Simulate all tracks of every case and realization
+        (ssrs/simulator.py:332-386) and save the ``_counts.npy`` presence
+        counts; a run of at most ``track_pkl_budget`` tracks also saves
+        its trajectories as ``_tracks.pkl``."""
         with self.timer.phase('simulate_tracks',
                               tracks=int(self.track_count),
                               cases=len(self.case_ids)):
             self._simulate_tracks_impl()
         self._dump_phase_timings()
 
-    def _simulate_tracks_impl(self) -> None:
-        print(f'Movement model = {self.movement_model}')
-        print(f'Updraft threshold = {self.updraft_threshold} m/s')
-        print(f'Movement direction = {self.track_direction} deg (cw)')
+    def _starts(self) -> np.ndarray:
+        """The run's ``(N, 2)`` int32 start cells, from the run's rng."""
         starting_rows, starting_cols = get_starting_indices(
             int(self.track_count), list(self.track_start_region),
             self.track_start_type, tuple(self.region_width_km),
             float(self.resolution), rng=self._rng)
-        starts = np.stack([starting_rows, starting_cols],
-                          axis=1).astype(np.int32)
+        return np.stack([starting_rows, starting_cols],
+                        axis=1).astype(np.int32)
+
+    def _work_items(self, items):
+        """``(case_id, real_id, updraft, (host, device) potential)`` work
+        items of fluidflow ``(case_id, real_id, updraft)`` items."""
+        pots = self._prepare_potentials(items, pairs=True)
+        return [(cid, rid, upd, pot)
+                for (cid, rid, upd), pot in zip(items, pots)]
+
+    def _simulate_tracks_impl(self) -> None:
+        print(f'Movement model = {self.movement_model}')
+        print(f'Updraft threshold = {self.updraft_threshold} m/s')
+        print(f'Movement direction = {self.track_direction} deg (cw)')
+        starts = self._starts()
         params = self._track_params()
         # reference-format .pkl trajectories for runs up to
         # track_pkl_budget tracks; larger runs keep only the counts
         record = int(self.track_count) <= int(self.track_pkl_budget)
+
+        if self.movement_model not in ('fluidflow', 'drw'):
+            raise ValueError(
+                f'movement_model {self.movement_model!r} not '
+                "implemented; options: 'fluidflow', 'drw'")
+
+        # every (case, realization, fields) work item; a drw item carries
+        # no field and no potential. With Config.fields_device the
+        # thresholded updrafts stay tensors on the run's device and the
+        # solver's potentials feed the table build as they are; without
+        # it both pass through numpy.
+        n_fields = len(self.case_ids) * (
+            1 + int(self.thermals_realization_count))
+        dev_fields = self._device_fields_fit(n_fields)
+        work = []
+        items = []
+        for case_id in self.case_ids:
+            updrafts = self.load_updrafts(case_id, apply_threshold=True,
+                                          device=dev_fields)
+            for real_id, updraft in enumerate(updrafts):
+                if self.movement_model == 'fluidflow':
+                    items.append((case_id, real_id, updraft))
+                else:
+                    work.append((case_id, real_id, None, None))
+        if items:
+            work = self._work_items(items)
+
+        if not record and len(work) > 1:
+            self._simulate_batched(params, starts, work)
+            return
+
         tail = int(self.track_tail_bucket) \
             if self.track_tail_bucket != 'auto' else 'auto'
-        for case_id in self.case_ids:
-            real_id = 0
-            with self.timer.phase('potential'):
-                updraft = self.load_updrafts(case_id)[real_id]
-                potential, pot_dev, info = self._directional_potential(
-                    updraft, case_id, real_id)
-            self.timer.records[-1].update(info)
-            potential = pot_dev if pot_dev is not None else \
-                torch.from_numpy(potential).to(self.device)
+        for case_id, real_id, updraft, pot_pair in work:
+            potential = None if pot_pair is None else \
+                self._device_potential(pot_pair)
             id_str = self._get_id_string(case_id, real_id)
             print(f'{id_str}: Simulating {self.track_count} tracks..',
                   end='', flush=True)
             start_time = time.time()
             gen = case_generator(self.sim_seed, case_id, real_id, 'tracks',
                                  self.device)
-            with self.timer.phase('tracks', recorded=record):
+            with self.timer.phase('tracks', recorded=record, id=id_str):
                 if record:
                     run = simulate_tracks_recorded(params, starts, gen,
                                                    updraft=updraft,
@@ -420,6 +583,113 @@ class Simulator(Config):
             fname = self._get_counts_fname(case_id, real_id,
                                            self.mode_data_dir)
             np.save(f'{fname}.npy', presence.astype(np.int32))
+
+    def _device_potential(self, pot_pair) -> torch.Tensor:
+        """The potential of a ``(host, device-or-None)`` pair on the run's
+        device: the solver's own tensor, or the host array (a cached
+        artifact, a fallback result) uploaded."""
+        host, dev = pot_pair
+        if dev is not None:
+            return dev
+        return torch.from_numpy(np.asarray(host, np.float32)).to(self.device)
+
+    def _simulate_batched(self, params, starts, work) -> None:
+        """All (case, realization) populations through the interleaved
+        multi-case compacting driver
+        (``agents.simulate_presence_cases_compacting``); the reference
+        loops them serially through its pool (ssrs/simulator.py:348-386).
+        The tables of fluidflow items are built at once; drw items have
+        no table. One ``batched_tracks`` phase record, one ``_counts.npy``
+        a work item."""
+        gens = [case_generator(self.sim_seed, case_id, real_id, 'tracks',
+                               self.device)
+                for case_id, real_id, _, _ in work]
+        if work[0][2] is None:
+            tables = [None] * len(work)
+        else:
+            dirp = torch.from_numpy(
+                directional_probs(float(self.track_direction))).to(
+                    self.device)
+            tables = prepared_weights_batch(
+                torch.stack([torch.as_tensor(upd, dtype=torch.float32,
+                                             device=self.device)
+                             for _, _, upd, _ in work]),
+                torch.stack([self._device_potential(pot)
+                             for _, _, _, pot in work]),
+                dirp.expand(len(work), 9), params.weight_dtype)
+        print(f'Simulating {len(work)} cases x {self.track_count} '
+              'tracks (batched)..', end='', flush=True)
+        start_time = time.time()
+        tail = int(self.track_tail_bucket) \
+            if self.track_tail_bucket != 'auto' else 'auto'
+        with self.timer.phase('batched_tracks', cases=len(work)):
+            presence, steps = simulate_presence_cases_compacting(
+                params, tables, starts, gens, tail_bucket=tail)
+            presence = presence.cpu().numpy().astype(np.int32)
+        print(f'took {elapsed_str(start_time)}', flush=True)
+        # useful steps = presence mass minus the start deposits
+        self.timer.records[-1].update(
+            steps=[int(s) for s in steps],
+            useful_steps=int(presence.sum(dtype=np.int64))
+            - len(work) * int(self.track_count))
+        for i, (case_id, real_id, _, _) in enumerate(work):
+            fname = self._get_counts_fname(case_id, real_id,
+                                           self.mode_data_dir)
+            np.save(f'{fname}.npy', presence[i])
+
+    def simulate_direction_sweep(self, wind_dirns) -> List[str]:
+        """Uniform-mode wind-direction sweep: one updraft field,
+        threshold, potential and agent population per direction, the
+        populations advancing together through the multi-case driver.
+        Only valid in uniform mode. Returns the new case ids
+        (``s{speed}d{dirn}``); artifacts follow the standard naming, so
+        the presence map works unchanged."""
+        if self.sim_mode.lower() != 'uniform':
+            raise ValueError('direction sweep requires uniform mode')
+        slope, aspect = self._slope_aspect()
+        oros = [self._orograph(slope, aspect, d) for d in wind_dirns]
+        new_cases = [f's{int(self.uniform_windspeed)}d{int(d)}'
+                     for d in wind_dirns]
+        dev_fields = self.movement_model == 'fluidflow' and \
+            self._device_fields_fit(len(wind_dirns))
+
+        def save_orographs():
+            for case_id, oro in zip(new_cases, oros):
+                fname = self._get_orograph_fname(case_id,
+                                                 self.mode_data_dir)
+                np.save(f'{fname}.npy',
+                        oro.cpu().numpy().astype(np.float32))
+
+        if not dev_fields:
+            # the host flow reloads the artifacts through load_updrafts,
+            # so they must exist before the work items are built
+            save_orographs()
+        self.case_ids = new_cases
+        starts = self._starts()
+        params = self._track_params()
+        work = []
+        items = []
+        for case_id, oro in zip(new_cases, oros):
+            if self.movement_model == 'fluidflow':
+                updraft = get_above_threshold_speed(
+                    oro, self.updraft_threshold) if dev_fields else \
+                    self.load_updrafts(case_id, apply_threshold=True,
+                                       device=False)[0]
+                items.append((case_id, 0, updraft))
+            else:
+                work.append((case_id, 0, None, None))
+        if items:
+            try:
+                work = self._work_items(items)
+            finally:
+                # the device flow's artifact copy must land even when a
+                # solve raises (e.g. the fallback's size cap): the host
+                # flow saved the orographs before the prep
+                if dev_fields:
+                    save_orographs()
+        self._simulate_batched(params, starts, work)
+        self._dump_phase_timings()
+        return new_cases
 
     def _dump_phase_timings(self) -> None:
         """Structured phase log (``phase_timings.json``)."""
@@ -462,21 +732,32 @@ class Simulator(Config):
         return int(round(min(max(radius / self.resolution, 2),
                              min(self.gridsize) / 2)))
 
+    def _smoothed_presence(self, case_id, real_id, krad: int) -> np.ndarray:
+        """Max-normalized smoothed presence probability of one
+        realization."""
+        counts = torch.from_numpy(
+            self.get_presence_counts(case_id, real_id).astype(np.int32))
+        prob = smooth_presence(counts.to(self.device), krad).cpu().numpy()
+        return prob / np.amax(prob)
+
+    def _case_presence(self, case_id, krad: int) -> np.ndarray:
+        """Sum of a case's per-realization probabilities (realization 0 is
+        orographic only; 1.. add the thermal realizations),
+        max-normalized."""
+        case_prob = np.zeros(self.gridsize, np.float64)
+        for real_id in range(1 + int(self.thermals_realization_count)):
+            case_prob += self._smoothed_presence(case_id, real_id, krad)
+        return case_prob / np.amax(case_prob)
+
     def compute_presence_map(self, radius: float = 1000.) -> np.ndarray:
-        """Summary presence probability over all cases (the computation
-        inside ``plot_presence_map``, ssrs/simulator.py:508-546), saved
-        as ``summary_presence.npy``."""
+        """Summary presence probability over all cases and realizations
+        (the computation inside ``plot_presence_map``,
+        ssrs/simulator.py:508-546), saved as ``summary_presence.npy``."""
         krad = self._presence_kernel_radius(radius)
         summary_prob = np.zeros(self.gridsize, np.float64)
         with self.timer.phase('presence_map'):
             for case_id in self.case_ids:
-                counts = torch.from_numpy(
-                    self.get_presence_counts(case_id, 0).astype(np.int32))
-                prob = smooth_presence(counts.to(self.device), krad)
-                prob = prob.cpu().numpy()
-                # one realization per case, so the max-normalized
-                # realization is the case's probability
-                summary_prob += prob / np.amax(prob)
+                summary_prob += self._case_presence(case_id, krad)
             summary_prob = summary_prob / np.amax(summary_prob)
             fname = os.path.join(self.mode_data_dir, 'summary_presence')
             np.save(f'{fname}.npy', summary_prob.astype(np.float32))

@@ -465,3 +465,121 @@ def test_vcycle_on_card_reads_nothing_back(cuda):
     finally:
         torch.cuda.set_sync_debug_mode('default')
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize('k', [0, 1, 3])
+@pytest.mark.parametrize('nu', [1.0, 0.0])
+def test_kernels_without_a_table_match_plain_on_card(cuda, k, nu):
+    """The directed random walk: a null table pointer in the per-step and
+    in the chunk kernel, each exactly equal to its plain version (state,
+    presence, emission rows)."""
+    _, a = _inputs(60 + k, k, torch.float32, cuda)
+    pk = torch.zeros(GRID, dtype=torch.int32, device=cuda)
+    pp = torch.zeros_like(pk)
+    out_k = _call(fs.fused_step, None, a, pk, nu, k)
+    out_p = _call(fs.fused_step_plain, None, a, pp, nu, k)
+    torch.cuda.synchronize()
+    for x, y in zip(out_k + (pk,), out_p + (pp,)):
+        assert torch.equal(x, y)
+    t_len = 64
+    _, st_k, u = _chunk_inputs(70 + k, k, torch.float32, t_len, cuda)
+    st_p = {name: v.clone() for name, v in st_k.items()}
+    pres_k = torch.zeros(GRID, dtype=torch.int32, device=cuda)
+    pres_p = torch.zeros_like(pres_k)
+    emit_k = _noise_emission(t_len, k, cuda)
+    emit_p = _noise_emission(t_len, k + 1, cuda)
+    _chunk_call(fc.fused_chunk, None, st_k, u, pres_k, nu, k, 2, 50, emit_k)
+    _chunk_call(fc.fused_chunk_plain, None, st_p, u, pres_p, nu, k, 2, 50,
+                emit_p)
+    torch.cuda.synchronize()
+    for name in st_k:
+        assert torch.equal(st_k[name], st_p[name]), name
+    assert torch.equal(pres_k, pres_p) and int(pres_k.sum()) > 0
+    assert torch.equal(emit_k[0], emit_p[0])
+    assert torch.equal(emit_k[1], emit_p[1])
+
+
+def test_kernels_without_a_table_nu2_on_card(cuda):
+    """nu = 2: expf/logf against torch's exp/log may round apart on a rare
+    draw; >= 99.9% of moves equal, the presence exact."""
+    _, a = _inputs(80, 1, torch.float32, cuda)
+    pk = torch.zeros(GRID, dtype=torch.int32, device=cuda)
+    pp = torch.zeros_like(pk)
+    out_k = _call(fs.fused_step, None, a, pk, 2.0, 1)
+    out_p = _call(fs.fused_step_plain, None, a, pp, 2.0, 1)
+    torch.cuda.synchronize()
+    same = (out_k[0] == out_p[0]) & (out_k[1] == out_p[1])
+    assert float(same.to(torch.float64).mean()) >= 0.999
+    assert torch.equal(pk, pp)
+
+
+def test_cases_driver_on_card_bit_identical_to_single(cuda):
+    """``simulate_presence_cases_compacting`` on the card: every case (two
+    tables, one walk without a table) equals the single-case driver with
+    the same seed, and the card ran one chunk launch a chunk and one flush
+    launch a flush."""
+    rng = np.random.default_rng(11)
+    nrow, ncol = GRID
+    params = tsim.TrackParams(grid_shape=GRID, move_dirn=0., nu=1.,
+                              memory_k=1, burnin=4, nsteps=300)
+    dirp = torch.from_numpy(directional_probs(0.)).to(cuda)
+    pot = torch.linspace(1000., 0., nrow, device=cuda)[:, None].expand(
+        nrow, ncol).contiguous()
+    tables = [tsim.prepared_weights(
+        torch.from_numpy(rng.random(GRID).astype(np.float32) + 0.5).to(cuda),
+        pot, dirp, 'float32') for _ in range(2)] + [None]
+    starts = np.stack([rng.integers(3, 6, 5000),
+                       rng.integers(5, ncol - 5, 5000)], axis=1)
+
+    def gens():
+        return [torch.Generator(device=cuda).manual_seed(40 + i)
+                for i in range(3)]
+
+    fs.reset_launch_count()
+    fc.reset_launch_count()
+    ph.reset_launch_count()
+    tsim.reset_flush_count()
+    presence, steps = tsim.simulate_presence_cases_compacting(
+        params, tables, starts, gens(), chunk=64, min_bucket=256)
+    torch.cuda.synchronize()
+    assert fs.launch_count() == 0
+    assert fc.launch_count() == sum(-(-int(s) // 64) for s in steps)
+    assert ph.launch_count('presence_flush') == tsim.flush_count() >= 3
+    for i, gen in enumerate(gens()):
+        want, want_steps = tsim.simulate_presence_compacting(
+            params, starts, gen, base_flat=tables[i], chunk=64,
+            min_bucket=256)
+        assert torch.equal(presence[i], want) and steps[i] == want_steps
+        assert int(want.sum()) >= 5000 * (params.burnin + 1)
+
+
+def test_gaussian_filter_on_card_matches_cpu(cuda):
+    """Two float32 convolutions of 33 taps, TF32 off: 1e-5 of the field's
+    maximum between card and CPU."""
+    from ssrs_tpu_torch.fields import gaussian_filter
+    rng = np.random.default_rng(13)
+    field = torch.from_numpy((rng.random((500, 600)) ** 8 * 40.)
+                             .astype(np.float32))
+    got = gaussian_filter(field.to(cuda)).cpu()
+    want = gaussian_filter(field)
+    assert float((got - want).abs().max()) <= 1e-5 * float(field.max())
+
+
+def test_sweep_on_card_fields_device_bitwise(cuda, tmp_path):
+    """A small direction sweep on the card, with device-resident fields
+    and through numpy: bitwise-equal counts and potentials."""
+    arts = []
+    for fields_device in (True, False):
+        cfg = dict(run_name=f'sweep_{fields_device}', sim_mode='uniform',
+                   sim_seed=5, region_width_km=(12., 10.), resolution=200.,
+                   track_count=4096, track_start_region=(1., 11., 1., 2.),
+                   track_max_steps=400, fields_device=fields_device,
+                   out_dir=str(tmp_path))
+        sim = ssrs_tpu_torch.Simulator(ssrs_tpu_torch.Config(**cfg),
+                                       device=cuda)
+        cases = sim.simulate_direction_sweep([0., 270.])
+        arts.append([np.load(os.path.join(
+            sim.mode_data_dir, f'{c}_d0_t75_fluidflow_r0_{kind}.npy'))
+            for c in cases for kind in ('counts', 'potential')])
+    for a, b in zip(*arts):
+        np.testing.assert_array_equal(a, b)

@@ -173,7 +173,8 @@ def test_default_device_needs_a_card(tmp_path):
 
 @pytest.mark.parametrize('override', [
     dict(sim_mode='seasonal'), dict(sim_mode='snapshot'),
-    dict(thermals_realization_count=1), dict(movement_model='drw'),
+    dict(sim_mode='snapshot', thermals_realization_count=1),
+    dict(mesh_devices=2, movement_model='drw'),
     dict(potential_solver='mg'), dict(track_presence_impl='scatter'),
     dict(mesh_devices=2), dict(track_step_impl='xla'),
     dict(potential_batch=2),
