@@ -47,13 +47,29 @@ thermal realizations through the batched driver, with device-resident
 fields and through numpy (bitwise-equal artifacts); and a drw run
 (no potential, a second run equal to the first).
 
+The WTK modes, at the same width, from a stand-in for the WindToolKit
+archive that the script builds (an hourly 2-km grid of six layers for
+2012: a real ``.h5`` where ``h5py`` imports, else an ``h5py``-shaped
+module of its own; one line says which): a seasonal run of eight
+timestamps with 100,000 tracks each through the ``LOCAL`` source and the
+multi-case driver (the cases and starts of the seed, launches counted,
+two cases bit-identical to the single-case driver, one orograph against
+``device='cpu'`` on the same cached frame, a rerun that reads no dataset
+of the source and takes every potential from the cache), and a snapshot
+run with one thermal realization, 10,000 recorded tracks and a fixture of
+turbines (``turbines.csv``, the counts against the recount of
+``_tracks.pkl`` through the count kernel, ``get_turbine_presence``). The
+script registers a ``requests`` of its own that refuses every request, so
+every run is offline: the terrain is the synthetic DEM.
+
 Every phase prints one line; any failure exits non-zero. The last three
 lines are a JSON object with the solver's, the track engine's, the
 count's and the multi-case paths' numbers, one with the kernels' numbers
 and the JSON status line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits
-non-zero and prints no result. It imports nothing of JAX.
+non-zero and prints no result. It imports nothing of JAX, and the port
+takes in no pandas and no requests.
 """
 
 from __future__ import annotations
@@ -149,6 +165,27 @@ GAUSS_TOL = 1e-5
 # size, so its sum scatters by ~12% and the mean of 8 by ~4%)
 THERMAL_SEEDS = 8
 THERMAL_MASS_TOL = 0.2
+# the WTK stand-in of the snapshot and the seasonal run: an hourly 2-km grid
+# over the README region for 2012 (a leap year), the six layers of the
+# Simulator's ``wtk_layers`` with ``scale_factor`` attributes
+WTK_YEAR = 2012
+WTK_HOURS = 24 * 366
+WTK_SPACING_KM = 2.
+WTK_MARGIN_DEG = 0.06
+WTK_SCALE = {'windspeed_100m': 100., 'winddirection_100m': 100.,
+             'pressure_100m': 0.1, 'temperature_100m': 100.,
+             'boundary_layer_height': 1., 'surface_heat_flux': 1.}
+WTK_LAYERS = list(WTK_SCALE)
+# the seasonal run: the default seasonal_count, 100,000 tracks a case
+SEASONAL_COUNT = 8
+# the snapshot run: recorded tracks (RECORDED_TRACKS), one thermal
+# realization, and a fixture of this many turbines
+SNAPSHOT_DATETIME = (2012, 6, 17, 13)
+SNAPSHOT_TURBINES = 48
+# an orograph on the card against the CPU's on the same winds: float32
+# sines and cosines that differ by ulps (the tolerance of the tests'
+# fields against the JAX package's)
+ORO_RTOL, ORO_ATOL = 1e-5, 1e-4
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device-memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -817,10 +854,13 @@ def phase_main(torch, device_name, out):
 def _check_chunk_launches(label, launched, steps):
     """The drivers' launches: one chunk kernel launch a chunk (each of the
     runs' chunks, at most 100,000 agents x DRIVER_CHUNK steps, is one
-    uniform block), covering every step, and no per-step launch."""
-    chunks = math.ceil(steps / DRIVER_CHUNK)
-    if steps <= 0 or launched['fused_chunk'] != chunks or \
-            launched['fused_chunk_steps'] != steps or launched['fused_step']:
+    uniform block), covering every step, and no per-step launch. ``steps``
+    is one run's steps, or those of several runs counted together."""
+    steps = [steps] if isinstance(steps, int) else list(steps)
+    chunks = sum(math.ceil(s / DRIVER_CHUNK) for s in steps)
+    if min(steps) <= 0 or launched['fused_chunk'] != chunks or \
+            launched['fused_chunk_steps'] != sum(steps) or \
+            launched['fused_step']:
         fail(f'{label}: {launched["fused_chunk"]} chunk launches covering '
              f'{launched["fused_chunk_steps"]} steps and '
              f'{launched["fused_step"]} per-step launches, for {steps} '
@@ -1558,14 +1598,58 @@ def _solver_line(rec):
     return f'{rec["id"].split("_")[0]} {s} {rec["seconds"]:.2f} s'
 
 
+def _check_cases_against_single(torch, sim, label, starts, rec, counts,
+                                picks):
+    """The batched run of ``sim``'s cases (realization 0 of each) against
+    the single-case driver: every table of one batched build from the
+    saved fields equals its own build, and the cases ``picks`` give, from
+    the same table, starts and generator, the steps and the counts of the
+    batched run, bit for bit. Returns the tables."""
+    from ssrs_tpu_torch.agents.moves import directional_probs
+    from ssrs_tpu_torch.agents.simulate import (
+        prepared_weights, prepared_weights_batch,
+        simulate_presence_compacting)
+    from ssrs_tpu_torch.core.rng import case_generator
+    dev = sim.device
+    cases = sim.case_ids
+    params = sim._track_params()
+    dirp = torch.from_numpy(directional_probs(params.move_dirn)).to(dev)
+    ups = torch.stack([sim.load_updrafts(c)[0] for c in cases])
+    potentials = torch.stack([torch.from_numpy(np.load(os.path.join(
+        sim.mode_data_dir,
+        f'{sim._get_id_string(c, 0)}_potential.npy'))).to(dev)
+        for c in cases])
+    tables = prepared_weights_batch(ups, potentials,
+                                    dirp.expand(len(cases), 9),
+                                    params.weight_dtype)
+    for i in range(len(cases)):
+        single = prepared_weights(ups[i], potentials[i], dirp,
+                                  params.weight_dtype)
+        if not torch.equal(tables[i].view(torch.int16),
+                           single.view(torch.int16)):
+            fail(f'{label}: table {i} of the batched build differs from '
+                 'its own build')
+    for i in picks:
+        got, steps = simulate_presence_compacting(
+            params, starts, case_generator(sim.sim_seed, cases[i], 0,
+                                           'tracks', dev),
+            base_flat=tables[i], dirp=dirp)
+        if steps != rec['steps'][i] or \
+                not np.array_equal(got.cpu().numpy(), counts[i]):
+            fail(f'{label}: case {cases[i]} differs from the single-case '
+                 'compacting driver')
+    say(f'{label}: cases {[cases[i] for i in picks]} bit-identical to '
+        'simulate_presence_compacting with the same seed, table and '
+        f'starts; the {len(cases)} batched tables equal their own builds')
+    return tables
+
+
 def phase_sweep(torch, device_name, out):
     """The direction sweep: SWEEP_DIRNS at the README region's width,
     100,000 tracks a direction, through ``simulate_direction_sweep``."""
     from ssrs_tpu_torch import Config, Simulator
-    from ssrs_tpu_torch.agents.moves import directional_probs
-    from ssrs_tpu_torch.agents.simulate import (
-        prepared_weights, prepared_weights_batch,
-        simulate_presence_cases_compacting, simulate_presence_compacting)
+    from ssrs_tpu_torch.agents.simulate import \
+        simulate_presence_cases_compacting
     from ssrs_tpu_torch.core.rng import case_generator
     cfg = Config(out_dir=out, **{**MAIN_CONFIG, 'run_name': 'wy_sweep'})
     sim = Simulator(cfg)
@@ -1618,39 +1702,14 @@ def phase_sweep(torch, device_name, out):
         f'{launched["presence_flush"]} flush launches, 0 per-step launches '
         f'on {device_name}')
 
-    # two cases against the single-case driver, bit for bit; every table
-    # of the batched build against its own build
-    params = sim._track_params()
-    starts = _run_starts(cfg)
-    dirp = torch.from_numpy(directional_probs(params.move_dirn)).to(dev)
-    ups = torch.stack([sim.load_updrafts(c)[0] for c in cases])
-    potentials = torch.stack([torch.from_numpy(load(c, 'potential')).to(dev)
-                              for c in cases])
-    tables = prepared_weights_batch(ups, potentials, dirp.expand(n_cases, 9),
-                                    params.weight_dtype)
-    for i in range(n_cases):
-        single = prepared_weights(ups[i], potentials[i], dirp,
-                                  params.weight_dtype)
-        if not torch.equal(tables[i].view(torch.int16),
-                           single.view(torch.int16)):
-            fail(f'sweep: table {i} of the batched build differs from its '
-                 'own build')
     # the first case, and one whose potential came from the fallback (or
     # 225 degrees, where the refined solve stalled on the tests' field)
     fallen = [i for i, r in enumerate(pots) if r['fallback'] and i > 0]
     picks = [0, (fallen + [n_cases // 2 + 1])[0]]
-    for i in picks:
-        got, steps = simulate_presence_compacting(
-            params, starts, case_generator(cfg.sim_seed, cases[i], 0,
-                                           'tracks', dev),
-            base_flat=tables[i], dirp=dirp)
-        if steps != rec['steps'][i] or \
-                not np.array_equal(got.cpu().numpy(), counts[cases[i]]):
-            fail(f'sweep: case {cases[i]} differs from the single-case '
-                 'compacting driver')
-    say(f'sweep: cases {[cases[i] for i in picks]} bit-identical to '
-        'simulate_presence_compacting with the same seed, table and '
-        f'starts; the {n_cases} batched tables equal their own builds')
+    params = sim._track_params()
+    starts = _run_starts(cfg)
+    tables = _check_cases_against_single(
+        torch, sim, 'sweep', starts, rec, [counts[c] for c in cases], picks)
 
     # the batched track phase again, warm, twice timed and once profiled;
     # every result equal to the sweep's
@@ -1886,6 +1945,547 @@ def phase_drw(torch, device_name, out):
                             'fused_step_launches': per_step['fused_step']}}
 
 
+def _refuse_http():
+    """Register a ``requests`` of the script's own that refuses every
+    request, so that the runs are offline whether or not the machine has
+    the package or a network: the terrain chain (3DEP -> SRTM ->
+    synthetic) ends at the synthetic DEM, and the USWTDB fetch at None.
+    Returns the module, which the last check looks for."""
+    import types
+
+    class ConnectionError(OSError):
+        pass
+
+    def get(*args, **kwargs):
+        raise ConnectionError('chip_smoke.py runs offline')
+
+    mod = types.ModuleType('requests')
+    mod.get = get
+    mod.exceptions = types.SimpleNamespace(
+        ConnectionError=ConnectionError, ConnectTimeout=ConnectionError,
+        HTTPError=ConnectionError)
+    sys.modules['requests'] = mod
+    return mod
+
+
+def _region_lonlat_bounds():
+    """(west, south, east, north) of the README region in lon/lat, as the
+    ``Simulator`` works them out."""
+    from ssrs_tpu_torch import Config
+    from ssrs_tpu_torch.core.grid import Grid
+    from ssrs_tpu_torch.data import transform_bounds, transform_coordinates
+    cfg = Config(**MAIN_CONFIG)
+    west, south = transform_coordinates(
+        'EPSG:4326', cfg.projected_crs, cfg.southwest_lonlat[0],
+        cfg.southwest_lonlat[1])
+    grid = Grid.from_region(tuple(cfg.region_width_km), cfg.resolution,
+                            (float(np.asarray(west).ravel()[0]),
+                             float(np.asarray(south).ravel()[0])))
+    return transform_bounds(grid.bounds, cfg.projected_crs, 'EPSG:4326')
+
+
+def _wtk_sites():
+    """(lat, lon) of the stand-in's sites, lat-major: a 2-km lattice over
+    the README region's lon/lat bounds and a margin, each site moved off
+    the lattice by up to 200 m (WTK's projected grid is not a lattice in
+    lon/lat either, and four sites on a circle have two triangulations)."""
+    lon0, lat0, lon1, lat1 = _region_lonlat_bounds()
+    mid = math.radians((lat0 + lat1) / 2)
+    dlat = WTK_SPACING_KM / 111.2
+    dlon = dlat / math.cos(mid)
+    lats = np.arange(lat0 - WTK_MARGIN_DEG, lat1 + WTK_MARGIN_DEG, dlat)
+    lons = np.arange(lon0 - WTK_MARGIN_DEG, lon1 + WTK_MARGIN_DEG, dlon)
+    lat_g, lon_g = np.meshgrid(lats, lons, indexing='ij')
+    rng = np.random.default_rng(MAIN_CONFIG['sim_seed'])
+    lat_g = lat_g + rng.uniform(-0.1, 0.1, lat_g.shape) * dlat
+    lon_g = lon_g + rng.uniform(-0.1, 0.1, lon_g.shape) * dlon
+    return lat_g.ravel(), lon_g.ravel()
+
+
+def _wtk_raw(name, hours, lat, lon):
+    """The stand-in's int32 values of one layer at ``hours`` (hours since
+    Jan 1, any shape that broadcasts against the sites): speeds of 4-14
+    m/s, a direction that turns by ~110 degrees over the region and by 7
+    degrees an hour, divided into ``WTK_SCALE[name]`` as the archive's
+    ``scale_factor`` has it."""
+    h = np.asarray(hours, np.float64)
+    x, y = (lon + 106.) / 0.8, (lat - 42.8) / 0.5
+    if name.startswith('windspeed'):
+        val = 9. + 5. * np.sin(0.37 * h + 2.1 * x + 1.3 * y)
+    elif name.startswith('winddirection'):
+        val = np.mod(235. + 7. * h + 70. * x + 40. * y, 360.)
+    elif name.startswith('pressure'):
+        val = 85000. + 400. * np.sin(0.05 * h) - 900. * y
+    elif name.startswith('temperature'):
+        val = 12. + 9. * np.sin(2 * math.pi * (h % 24 - 9) / 24) - 2. * y
+    elif name == 'boundary_layer_height':
+        val = 900. + 600. * np.sin(2 * math.pi * (h % 24 - 8) / 24) ** 2 \
+            + 0. * x
+    else:
+        val = 150. + 120. * np.sin(2 * math.pi * (h % 24 - 7) / 24) + 0. * x
+    return np.round(val * WTK_SCALE[name]).astype(np.int32)
+
+
+class _StandInDataset:
+    """An h5py-shaped dataset whose values are a function of the index:
+    numpy indexing of ``(hours, sites)``, ``attrs``."""
+
+    def __init__(self, name, lat, lon):
+        self._name, self._lat, self._lon = name, lat, lon
+        self.attrs = {} if name == 'coordinates' else \
+            {'scale_factor': WTK_SCALE[name]}
+        self.shape = (len(lat), 2) if name == 'coordinates' else \
+            (WTK_HOURS, len(lat))
+
+    def __getitem__(self, key):
+        if self._name == 'coordinates':
+            return np.stack([self._lat, self._lon], axis=1)[key]
+        hours, sites = key
+        hours = np.arange(WTK_HOURS)[hours]
+        return _wtk_raw(self._name, hours[..., None] if np.ndim(hours)
+                        else hours, self._lat[sites], self._lon[sites])
+
+
+class _StandInH5:
+    """An ``h5py``-shaped module over the stand-in: ``File(path, mode)`` as
+    a context manager with ``__iter__`` and ``__getitem__``, for the one
+    path it was made for. ``reads`` lists every dataset taken from a
+    file."""
+
+    def __init__(self, fpath, lat, lon):
+        self.reads = reads = []
+
+        class File:
+            def __init__(self, path, mode='r', **kwargs):
+                if os.path.abspath(path) != os.path.abspath(fpath):
+                    raise FileNotFoundError(path)
+                self._sets = {n: _StandInDataset(n, lat, lon)
+                              for n in ['coordinates'] + WTK_LAYERS}
+
+            def __enter__(self):
+                return self
+
+            def __exit__(self, *exc):
+                return False
+
+            def __iter__(self):
+                return iter(self._sets)
+
+            def __getitem__(self, name):
+                reads.append(name)
+                return self._sets[name]
+
+        self.File = File
+
+
+def phase_wtk_archive(out):
+    """The WTK stand-in for 2012 (an hourly 2-km grid of six layers): a
+    real ``.h5`` for the ``LOCAL`` source where ``h5py`` imports, else an
+    ``h5py``-shaped module of the script's own in ``sys.modules``. Returns
+    the ``wtk_local_template`` and a function that says how many times a
+    dataset was taken from the source's files since its last call."""
+    import types
+    lat, lon = _wtk_sites()
+    fpath = os.path.join(out, f'wtk_standin_{WTK_YEAR}.h5')
+    t0 = time.perf_counter()
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    if h5py is not None:
+        with h5py.File(fpath, 'w') as fobj:
+            fobj.create_dataset('coordinates',
+                                data=np.stack([lat, lon], axis=1))
+            for name in WTK_LAYERS:
+                dset = fobj.create_dataset(name, (WTK_HOURS, len(lat)), 'i4')
+                dset.attrs['scale_factor'] = WTK_SCALE[name]
+                for h0 in range(0, WTK_HOURS, 24 * 61):
+                    hours = np.arange(h0, min(h0 + 24 * 61, WTK_HOURS))
+                    dset[hours[0]:hours[-1] + 1] = _wtk_raw(
+                        name, hours[:, None], lat, lon)
+        # count the datasets taken, through a module that hands h5py's
+        # files on
+        reads = []
+        real_file = h5py.File
+
+        class CountingFile(real_file):
+            def __getitem__(self, name):
+                reads.append(name)
+                return super().__getitem__(name)
+
+        counting = types.ModuleType('h5py')
+        counting.__dict__.update(h5py.__dict__)
+        counting.File = CountingFile
+        sys.modules['h5py'] = counting
+        kind = f'a real .h5 through h5py {h5py.__version__} ' \
+            f'({os.path.getsize(fpath) / 1e6:.0f} MB)'
+    else:
+        with open(fpath, 'wb') as fobj:
+            fobj.write(b'stand-in; the values are computed by chip_smoke.py')
+        standin = _StandInH5(fpath, lat, lon)
+        reads = standin.reads
+        sys.modules['h5py'] = standin
+        kind = "an h5py-shaped module of the script's own (no h5py here)"
+
+    def reads_since_last():
+        n = len(reads)
+        del reads[:]
+        return n
+
+    say(f'WTK stand-in: {kind}; {len(lat)} sites on a '
+        f'{WTK_SPACING_KM:g}-km grid, {WTK_HOURS} hours of {WTK_YEAR}, '
+        f'{len(WTK_LAYERS)} layers, {time.perf_counter() - t0:.2f} s')
+    return fpath.replace(str(WTK_YEAR), '$YEAR'), reads_since_last
+
+
+def _wtk_config(template, **kw):
+    return {**MAIN_CONFIG, 'wtk_source': 'LOCAL',
+            'wtk_local_template': template, 'wtk_local_years': (WTK_YEAR,),
+            **kw}
+
+
+def _phase_seconds(records, name):
+    return [r['seconds'] for r in records if r['phase'] == name]
+
+
+def _wtk_phase_line(label, records):
+    """One line of the constructor's phases of a WTK run."""
+    frames = _phase_seconds(records, 'wtk_frame')
+    interp = _phase_seconds(records, 'wtk_interp')
+    one = {k: _phase_seconds(records, k)[0]
+           for k in ('terrain', 'turbines', 'wtk_download', 'updrafts',
+                     'thermals')}
+    say(f'{label} ctor phases (s): terrain {one["terrain"]:.3f}, turbines '
+        f'{one["turbines"]:.4f}, WTK reads of {len(frames)} timestamps '
+        f'{one["wtk_download"]:.3f} (and {sum(frames):.3f} reading the '
+        f'cached frames back), interpolation {sum(interp):.3f} '
+        f'({len(interp)} x 2 griddata, {min(interp):.3f}-{max(interp):.3f} '
+        f'each), updrafts {one["updrafts"]:.3f} in all, thermals '
+        f'{one["thermals"]:.3f}')
+    return {**one, 'wtk_frames': sum(frames), 'wtk_interp': sum(interp)}
+
+
+def _csv_mtimes(dirname):
+    return {n: os.stat(os.path.join(dirname, n)).st_mtime_ns
+            for n in sorted(os.listdir(dirname)) if n.endswith('.csv')}
+
+
+def phase_seasonal(torch, device_name, out, template, wtk_reads):
+    """Seasonal mode at the README region's width: SEASONAL_COUNT
+    timestamps of the WTK stand-in (the default ``seasonal_count``),
+    100,000 tracks a case, counts only, through the multi-case driver."""
+    import shutil
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.agents import get_starting_indices
+    from ssrs_tpu_torch.utils import get_seasonal_datetimes_list
+    cfg = Config(out_dir=out, **_wtk_config(
+        template, run_name='wy_seasonal', sim_mode='seasonal',
+        seasonal_count=SEASONAL_COUNT, track_pkl_budget=0))
+    wtk_reads()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg)
+    ctor = time.perf_counter() - t0
+    n_reads = wtk_reads()
+    n_cases = SEASONAL_COUNT
+    tracks = cfg.track_count
+    # the cases and the starts of the seed: the sampler draws from the
+    # run's generator first, the starts after it
+    rng = np.random.default_rng(cfg.sim_seed)
+    want = get_seasonal_datetimes_list(
+        [WTK_YEAR], cfg.seasonal_start, cfg.seasonal_end,
+        cfg.seasonal_timeofday, n_cases, tuple(sim.lonlat_bounds[0:2]), rng)
+    rows, cols = get_starting_indices(
+        tracks, list(cfg.track_start_region), cfg.track_start_type,
+        tuple(cfg.region_width_km), float(cfg.resolution), rng=rng)
+    starts = np.stack([rows, cols], axis=1).astype(np.int32)
+    cases = [dt.strftime(sim.time_format) for dt in want]
+    if sim.case_ids != cases or len(set(cases)) != n_cases:
+        fail(f'seasonal run: case ids {sim.case_ids}, not {cases}')
+    # the coordinates twice, then every layer of every timestamp for its
+    # scale factor and for its values
+    if n_reads != 2 + 2 * n_cases * len(WTK_LAYERS):
+        fail(f'seasonal run: {n_reads} dataset reads of the WTK source')
+    ctor_s = _wtk_phase_line('seasonal run', sim.timer.records)
+    if sim.turbines.dframe is not None or \
+            sim.terrain_layers != {'Elevation': 'SYNTHETIC'}:
+        fail('seasonal run: the run was not offline')
+    n_sites = len(sim.wtk.get_locations())
+    _reset_counts()
+    sim.simulate_tracks()
+    launched = _read_counts()
+    pots = [r for r in sim.timer.records if r['phase'] == 'potential']
+    recs = [r for r in sim.timer.records if r['phase'] == 'batched_tracks']
+    if len(pots) != n_cases or len(recs) != 1 or \
+            recs[0]['cases'] != n_cases or \
+            any(r['solver'] not in ('refined', 'direct') for r in pots):
+        fail(f'seasonal run: {len(pots)} potential records, batched '
+             f'records {recs}')
+    rec = recs[0]
+    _check_batched_launches('seasonal run', launched, rec)
+    burnin = sim.grid.burnin_length()
+
+    def load(simulator, case, kind):
+        return np.load(os.path.join(
+            simulator.mode_data_dir,
+            f'{simulator._get_id_string(case, 0)}_{kind}.npy'))
+
+    counts = [load(sim, c, 'counts') for c in cases]
+    mass = sum(_check_case_counts(f'seasonal run {c}', counts[i], tracks,
+                                  burnin) for i, c in enumerate(cases))
+    if rec['useful_steps'] != mass - n_cases * tracks:
+        fail(f'seasonal run: useful_steps {rec["useful_steps"]} != '
+             f'{mass - n_cases * tracks}')
+    prep_s = sum(r['seconds'] for r in pots)
+    n_fallback = sum(bool(r['fallback']) for r in pots)
+    say('seasonal run potentials: ' + '; '.join(
+        _solver_line(r) + f' {r["vcycles"]} V-cycles' for r in pots))
+    say(f'seasonal run: {n_cases} cases x {tracks} tracks, {n_sites} WTK '
+        f'sites; ctor {ctor:.3f} s, potentials {prep_s:.3f} s '
+        f'({n_fallback} fallbacks), batched track phase '
+        f'{rec["seconds"]:.3f} s for {rec["useful_steps"]} agent-steps = '
+        f'{rec["useful_steps"] / rec["seconds"]:.4g} agent-steps/s; steps '
+        f'{rec["steps"]}, {launched["fused_chunk"]} chunk launches, '
+        f'{launched["flushes"]} flushes through '
+        f'{launched["presence_flush"]} flush launches, 0 per-step launches '
+        f'on {device_name}')
+    fallen = [i for i, r in enumerate(pots) if r['fallback'] and i > 0]
+    _check_cases_against_single(
+        torch, sim, 'seasonal run', starts, rec, counts,
+        [0, (fallen + [n_cases // 2 + 1])[0]])
+
+    # one case's orograph on the CPU: a snapshot run of that timestamp
+    # from a copy of the cached WTK frame, device='cpu'
+    pick = n_cases // 2
+    cpu_cfg = Config(out_dir=out, **_wtk_config(
+        template, run_name='wy_seasonal_cpu', sim_mode='snapshot',
+        snapshot_datetime=(want[pick].year, want[pick].month,
+                           want[pick].day, want[pick].hour),
+        track_pkl_budget=0))
+    cpu_dir = os.path.join(out, cpu_cfg.run_name, 'data', 'snapshot')
+    os.makedirs(cpu_dir)
+    for name in ('wtk_locations.csv', 'wtk_locations_bounds.json',
+                 f'{cases[pick]}_wtk.csv'):
+        shutil.copy(os.path.join(sim.mode_data_dir, name), cpu_dir)
+    wtk_reads()
+    cpu_sim = Simulator(cpu_cfg, device='cpu')
+    if wtk_reads() or cpu_sim.case_ids != [cases[pick]]:
+        fail('seasonal run: the CPU run did not take the cached WTK frame')
+    oro = np.load(os.path.join(sim.mode_data_dir,
+                               f'{cases[pick]}_orograph.npy'))
+    oro_cpu = np.load(os.path.join(cpu_dir, f'{cases[pick]}_orograph.npy'))
+    oro_err = float(np.abs(oro - oro_cpu).max())
+    if oro.shape != (NROW, NCOL) or not np.allclose(
+            oro, oro_cpu, rtol=ORO_RTOL, atol=ORO_ATOL) or \
+            not oro.max() > cfg.updraft_threshold:
+        fail(f'seasonal run: the orograph of {cases[pick]} on the card '
+             f'differs from the CPU\'s by {oro_err:.3g}')
+    say(f'seasonal run: orograph of {cases[pick]} on the card against '
+        f'device=\'cpu\' on the same cached frame: max |diff| {oro_err:.3g} '
+        f'of max {oro.max():.3f} m/s (rtol {ORO_RTOL:g}, atol {ORO_ATOL:g})')
+
+    # a second Simulator on the same directory: the source is opened for
+    # the layer probe and no dataset is read, the CSV caches stay as they
+    # are, every potential comes from the cache, the counts are equal
+    mtimes = _csv_mtimes(sim.mode_data_dir)
+    if len(mtimes) != 1 + n_cases:
+        fail(f'seasonal run: CSV caches {sorted(mtimes)}')
+    wtk_reads()
+    t0 = time.perf_counter()
+    again = Simulator(cfg)
+    rerun_ctor = time.perf_counter() - t0
+    n_reads = wtk_reads()
+    again.simulate_tracks()
+    rerun_s = time.perf_counter() - t0
+    hits = sum(r['solver'] == 'cache' for r in again.timer.records
+               if r['phase'] == 'potential')
+    if n_reads or _csv_mtimes(sim.mode_data_dir) != mtimes or \
+            again.case_ids != cases or hits != n_cases or any(
+                not np.array_equal(load(again, c, 'counts'), counts[i])
+                for i, c in enumerate(cases)):
+        fail(f'seasonal rerun: {n_reads} dataset reads, {hits} potential '
+             f'cache hits of {n_cases}, or the caches or counts changed')
+    say(f'seasonal rerun: 0 dataset reads of the WTK source, the '
+        f'{len(mtimes)} CSV caches untouched, {hits} potential cache hits, '
+        f'equal counts; ctor {rerun_ctor:.3f} s, with the tracks '
+        f'{rerun_s:.3f} s')
+    summary = sim.compute_presence_map()
+    if summary.shape != (NROW, NCOL) or summary.max() != 1.0:
+        fail('seasonal run: the presence map is not max-normalized')
+    return launched, {
+        'cases': cases, 'wtk_sites': n_sites, 'ctor_s': ctor,
+        'ctor_phases_s': ctor_s, 'potentials_s': prep_s,
+        'potentials': [{k: r[k] for k in ('id', 'solver', 'fallback', 'rrel',
+                                          'seconds', 'vcycles')}
+                       for r in pots],
+        'batched_tracks_s': rec['seconds'],
+        'useful_steps': rec['useful_steps'], 'steps': rec['steps'],
+        'chunk_launches': launched['fused_chunk'],
+        'flushes': launched['flushes'], 'orograph_card_vs_cpu': oro_err,
+        'rerun_ctor_s': rerun_ctor, 'rerun_s': rerun_s}
+
+
+def _turbine_fixture():
+    """A few dozen USWTDB-shaped turbines in and around the README region
+    (its lon/lat box widened by a third on every side), hub heights on
+    both sides of ``turbine_minimum_hubheight``."""
+    rng = np.random.default_rng(MAIN_CONFIG['sim_seed'])
+    n = SNAPSHOT_TURBINES
+    lon0, lat0, lon1, lat1 = _region_lonlat_bounds()
+    dlon, dlat = (lon1 - lon0) / 3, (lat1 - lat0) / 3
+    hub = rng.uniform(25., 120., n).round(1)
+    return {
+        't_state': ['WY'] * n,
+        'p_name': [f'Project {i % 5}' for i in range(n)],
+        'p_year': [2005 + i % 15 for i in range(n)],
+        't_cap': [1500 + 100 * (i % 10) for i in range(n)],
+        't_hh': hub, 't_rd': (hub * 1.1).round(1),
+        'xlong': rng.uniform(lon0 - dlon, lon1 + dlon, n),
+        'ylat': rng.uniform(lat0 - dlat, lat1 + dlat, n)}
+
+
+def phase_snapshot(torch, device_name, out, template):
+    """Snapshot mode with turbines at the README region's width: one
+    timestamp of the WTK stand-in, one thermal realization, 10,000 recorded
+    tracks (``_tracks.pkl``), and the presence scores of a fixture of
+    turbines passed in as the simulator module's ``TurbinesUSWTB``."""
+    import ssrs_tpu_torch.simulator as sim_mod
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.data import read_csv, transform_coordinates
+    fixture = _turbine_fixture()
+    real_tb = sim_mod.TurbinesUSWTB
+
+    class FixtureTB(real_tb):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, dataframe=dict(fixture), **kwargs)
+
+    cfg = Config(out_dir=out, **_wtk_config(
+        template, run_name='wy_snapshot', sim_mode='snapshot',
+        snapshot_datetime=SNAPSHOT_DATETIME, track_count=RECORDED_TRACKS,
+        thermals_realization_count=1))
+    sim_mod.TurbinesUSWTB = FixtureTB
+    try:
+        t0 = time.perf_counter()
+        sim = Simulator(cfg)
+        ctor = time.perf_counter() - t0
+    finally:
+        sim_mod.TurbinesUSWTB = real_tb
+    case = '{:04d}m{:02d}d{:02d}h{:02d}'.format(*SNAPSHOT_DATETIME)
+    if sim.case_ids != ['y' + case]:
+        fail(f'snapshot run: case ids {sim.case_ids}')
+    case = sim.case_ids[0]
+    ctor_s = _wtk_phase_line('snapshot run', sim.timer.records)
+
+    # turbines.csv: exactly the turbines inside the bounds and at or above
+    # the hub height, by their row numbers in the fixture
+    xs, ys = transform_coordinates('EPSG:4326', cfg.projected_crs,
+                                   fixture['xlong'], fixture['ylat'])
+    b = sim.bounds
+    keep = np.nonzero((xs >= b[0]) & (xs <= b[2]) & (ys >= b[1])
+                      & (ys <= b[3]) & (fixture['t_hh']
+                                        >= cfg.turbine_minimum_hubheight))[0]
+    saved = read_csv(os.path.join(sim.mode_data_dir, 'turbines.csv'))
+    inside = np.count_nonzero((xs >= b[0]) & (xs <= b[2]) & (ys >= b[1])
+                              & (ys <= b[3]))
+    if not np.array_equal(saved.index, keep) or not (
+            0 < len(keep) < inside < SNAPSHOT_TURBINES) or \
+            not saved.equals(sim.turbines.dframe) or \
+            not np.array_equal(saved['t_hh'], fixture['t_hh'][keep]):
+        fail(f'snapshot run: turbines.csv holds rows {list(saved.index)}, '
+             f'not {list(keep)}')
+
+    _reset_counts()
+    sim.simulate_tracks()
+    launched = _read_counts()
+    tracks_recs = [r for r in sim.timer.records if r['phase'] == 'tracks']
+    pots = [r for r in sim.timer.records if r['phase'] == 'potential']
+    if len(tracks_recs) != 2 or len(pots) != 2 or \
+            not all(r.get('recorded') and r['builder'] == 'native'
+                    for r in tracks_recs):
+        fail(f'snapshot run: tracks records {tracks_recs}')
+    _check_chunk_launches('snapshot run', launched,
+                          [r['steps'] for r in tracks_recs])
+    _check_flush_launches('snapshot run', launched)
+
+    # the recorded counts against the recount of the .pkl: with the
+    # _counts.npy moved away the presence map recounts through kernel C,
+    # one launch a realization
+    paths = [os.path.join(sim.mode_data_dir,
+                          f'{sim._get_id_string(case, r)}_counts.npy')
+             for r in (0, 1)]
+    counts = [np.load(f) for f in paths]
+    for real in (0, 1):
+        with open(paths[real].replace('_counts.npy', '_tracks.pkl'),
+                  'rb') as fobj:
+            lengths = sum(len(t) for t in pickle.load(fobj))
+        if int(counts[real].sum(dtype=np.int64)) != lengths:
+            fail(f'snapshot run r{real}: counts mass != sum of lengths')
+    for f in paths:
+        os.replace(f, f + '.moved')
+    _reset_counts()
+    recounts = [sim.get_presence_counts(case, r) for r in (0, 1)]
+    scores = sim.get_turbine_presence()
+    recounted = _read_counts()
+    for f in paths:
+        os.replace(f + '.moved', f)
+    # two recounts asked for here, two more by the presence map
+    if recounted['presence_histogram_batch'] != 4 or \
+            recounted['fused_chunk'] or recounted['fused_step'] or \
+            recounted['presence_flush'] or recounted['presence_histogram']:
+        fail(f'snapshot run: four recounts launched {recounted}')
+    if any(not np.array_equal(r, c.astype(np.int16))
+           for r, c in zip(recounts, counts)):
+        fail('snapshot run: _counts.npy differs from the recount of the pkl')
+    launched['presence_histogram_batch'] = \
+        recounted['presence_histogram_batch']
+    summary = np.load(os.path.join(sim.mode_data_dir,
+                                   'summary_presence.npy'))
+    from_counts = sim.compute_presence_map()
+    if np.abs(from_counts - summary).max() > 1e-6 or summary.max() != 1.0:
+        fail('snapshot run: the presence map of the recounts differs from '
+             'that of the counts')
+
+    # the scores: one a turbine, in [0, 1], sorted, each the summary map at
+    # the cell searchsorted gives
+    pres = scores['presence']
+    xgrid, ygrid = sim.get_terrain_grid()
+    at = summary[np.clip(np.searchsorted(ygrid, scores['y']), 0, NROW - 1),
+                 np.clip(np.searchsorted(xgrid, scores['x']), 0, NCOL - 1)]
+    if len(scores) != len(keep) or sorted(scores.index) != list(keep) or \
+            pres.min() < 0. or pres.max() > 1. or \
+            (np.diff(pres) > 0).any() or \
+            np.abs(pres - at).max() > 1e-6 or \
+            'presence' in sim.turbines.dframe:
+        fail(f'snapshot run: turbine scores {pres}')
+    say('snapshot run potentials: ' + '; '.join(
+        f'r{i} ' + _solver_line(r).split(' ', 1)[1]
+        + f' {r["vcycles"]} V-cycles' for i, r in enumerate(pots)))
+    say(f'snapshot run: {case}, {cfg.track_count} recorded tracks x 2 '
+        f'realizations; ctor {ctor:.3f} s; steps '
+        f'{[r["steps"] for r in tracks_recs]}, {launched["fused_chunk"]} '
+        f'chunk launches, {launched["flushes"]} flushes through '
+        f'{launched["presence_flush"]} flush launches; tracks '
+        f'{sum(r["seconds"] for r in tracks_recs):.3f} s for '
+        f'{sum(r["useful_steps"] for r in tracks_recs)} agent-steps; '
+        f'counts = the .pkl recounts, one launch of the count kernel each; '
+        f'turbines: {SNAPSHOT_TURBINES} in the fixture, {inside} inside '
+        f'the bounds, {len(keep)} of them at or above '
+        f'{cfg.turbine_minimum_hubheight:g} m in turbines.csv; scores '
+        f'{pres.max():.4f}..{pres.min():.4f}, sorted, each equal to '
+        f'summary_presence.npy at its cell, on {device_name}')
+    return launched, {
+        'case': case, 'ctor_s': ctor, 'ctor_phases_s': ctor_s,
+        'potentials': [{k: r[k] for k in ('id', 'solver', 'fallback', 'rrel',
+                                          'seconds', 'vcycles')}
+                       for r in pots],
+        'tracks_s': [r['seconds'] for r in tracks_recs],
+        'steps': [r['steps'] for r in tracks_recs],
+        'useful_steps': [r['useful_steps'] for r in tracks_recs],
+        'turbines': {'fixture': SNAPSHOT_TURBINES, 'inside': int(inside),
+                     'scored': int(len(keep)),
+                     'presence_max': float(pres.max()),
+                     'presence_min': float(pres.min())}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1900,6 +2500,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    offline = _refuse_http()
     name = phase_device(torch)
     phase_build()
     max_err, timing = phase_kernel(torch)
@@ -1915,9 +2516,17 @@ def main() -> int:
         sweep_run, sweep = phase_sweep(torch, name, out)
         thermals_run, thermals_path = phase_thermals_run(torch, name, out)
         drw_run, drw = phase_drw(torch, name, out)
+        template, wtk_reads = phase_wtk_archive(out)
+        seasonal_run, seasonal = phase_seasonal(torch, name, out, template,
+                                                wtk_reads)
+        snapshot_run, snapshot = phase_snapshot(torch, name, out, template)
     phase_small(torch)
-    if any(m for m in sys.modules if m.split('.')[0] in ('jax', 'ssrs_tpu')):
-        fail('JAX or ssrs_tpu was imported')
+    # the port took in no JAX, and no pandas or requests either: the only
+    # ``requests`` is the script's own, which refuses
+    bad = [m for m in sys.modules if m.split('.')[0] in (
+        'jax', 'jaxlib', 'ssrs_tpu', 'pandas')]
+    if bad or sys.modules.get('requests') is not offline:
+        fail(f'imported through the port: {bad or "requests"}')
     bf16, f32 = timing['bfloat16'], timing['float32']
     flush_real, flush_syn = engine['flush_real'], hist['presence_flush']
     count_syn = hist['presence_histogram_batch']
@@ -1997,15 +2606,22 @@ def main() -> int:
         # 10,000-track recorded run, each counted from 0 just before it
         k['launches_uniform_run'] = main_run[k['name']]
         k['launches_recorded_run'] = recorded[k['name']]
-        # this slice's paths: the direction sweep, the thermals run and the
-        # drw run, each counted from 0 just before it
+        # the multi-case paths (the direction sweep, the thermals run, the
+        # drw run) and the WTK modes (the seasonal run, the snapshot run
+        # with its recounts), each counted from 0 just before it
         new_paths = {'launches_sweep': sweep_run,
                      'launches_thermals_run': thermals_run,
-                     'launches_drw_run': drw_run}
+                     'launches_drw_run': drw_run,
+                     'launches_seasonal_run': seasonal_run,
+                     'launches_snapshot_run': snapshot_run}
         for key, counted in new_paths.items():
             k[key] = counted[k['name']]
             if k[key] < 1 and k['name'] in ('fused_chunk', 'presence_flush'):
                 fail(f'{k["name"]}: not launched on its path ({key})')
+        if k['name'] == 'presence_histogram_batch' and \
+                k['launches_snapshot_run'] < 1:
+            fail('presence_histogram_batch: not launched by the snapshot '
+                 "run's recounts")
         # the weighted histogram is a standalone kernel, as in ssrs_tpu:
         # no path runs it since the flush has its own kernel (phase_hist
         # holds it against its plain version all the same)
@@ -2016,7 +2632,8 @@ def main() -> int:
     count = {key: hist[key] for key in ('count_hot_cell', 'count_bands',
                                         'count_sweep')}
     cases = {'no_table': no_table, 'thermals': thermals, 'sweep': sweep,
-             'thermals_run': thermals_path, 'drw': drw}
+             'thermals_run': thermals_path, 'drw': drw,
+             'seasonal': seasonal, 'snapshot': snapshot}
     print(json.dumps({'solver': solver, 'engine': engine, 'count': count,
                       'cases': cases}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

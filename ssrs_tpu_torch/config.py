@@ -30,7 +30,7 @@ class Config:
     out_dir: str = field(
         default_factory=lambda: os.path.join(
             os.path.abspath(os.path.curdir), 'output'))
-    max_cores: int = 8  # retained for config parity; unused by the port
+    max_cores: int = 8  # threads of the WTK download fan-out
     sim_seed: int = -1  # random number seed
     sim_mode: str = 'uniform'  # snapshot, seasonal, uniform
     print_verbose: bool = False  # if want to print verbose

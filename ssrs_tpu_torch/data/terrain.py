@@ -1,10 +1,11 @@
-"""Terrain layer acquisition with file-granular caching.
+"""Copy of ``ssrs_tpu/data/terrain.py``, unchanged apart from imports.
 
-``ssrs_tpu/data/terrain.py`` with only the offline ``SYNTHETIC`` source:
-the same cache file name and the same bounds-containment check, so a
-cached DEM written by either package serves the other. The 3DEP and
-SRTM sources are not ported yet (ROADMAP); offline, the JAX package's
-3DEP -> SRTM -> synthetic chain ends at this same synthetic file."""
+Terrain layer acquisition with file-granular caching.
+
+Reference semantics (ssrs/terrain/terrain.py): validate layer names,
+cache GeoTIFFs per layer, re-download only when the cached file doesn't
+contain the requested bounds, dispatch 3DEP vs SRTM by layer name. Adds
+the offline 'SYNTHETIC' source (see data/synthetic.py)."""
 
 from __future__ import annotations
 
@@ -12,14 +13,17 @@ import os
 from typing import List, Tuple, Union
 
 from .geotiff import read_geotiff
+from .srtm import SRTM
 from .synthetic import SyntheticTerrain
+from .threedep import ThreeDEP
 
 
 class Terrain:
-    """Terrain layers for a lon/lat-bounded region
+    """Downloads terrain layers for a lon/lat-bounded region
     (ssrs/terrain/terrain.py:12-94)."""
 
-    valid_layers = SyntheticTerrain.valid_layers
+    valid_layers = (ThreeDEP.valid_layers + SRTM.valid_layers
+                    + SyntheticTerrain.valid_layers)
 
     def __init__(self, lonlat_bounds: Tuple[float, float, float, float],
                  out_dir: str, print_verbose: bool = True):
@@ -46,19 +50,27 @@ class Terrain:
             try:
                 self.validate_saved_layer_data(layer)
             except FileNotFoundError:
-                if self.print_verbose:
-                    print('Terrain: Generating synthetic DEM..')
-                SyntheticTerrain(layer, pad_bnds, fpath).download()
+                if layer in ThreeDEP.valid_layers:
+                    if self.print_verbose:
+                        print(f'Terrain: Downloading {layer} from 3DEP..')
+                    src = ThreeDEP(layer, pad_bnds, fpath)
+                elif layer in SRTM.valid_layers:
+                    if self.print_verbose:
+                        print(f'Terrain: Downloading {layer} from SRTM..')
+                    src = SRTM(layer, pad_bnds, fpath)
+                else:
+                    if self.print_verbose:
+                        print(f'Terrain: Generating synthetic DEM..')
+                    src = SyntheticTerrain(layer, pad_bnds, fpath)
+                src.download()
             else:
                 if self.print_verbose:
                     print(f'Terrain: Found saved raster data for {layer}')
 
     def validate_layer_name(self, layer: str) -> None:
         if layer not in self.valid_layers:
-            raise NotImplementedError(
-                f'Terrain layer {layer!r}: the port has only the offline '
-                "'SYNTHETIC' source; 3DEP/SRTM wait (ROADMAP.md, "
-                'modules still to port)')
+            raise ValueError(f'Terrain: Invalid layer name: {layer}'
+                             '\nOptions:\n' + '\n'.join(self.valid_layers))
 
     def validate_saved_layer_data(self, layer: str) -> None:
         """Bounds-containment cache validation

@@ -1,24 +1,27 @@
-"""The ``Simulator`` facade of the port, in uniform mode.
+"""The ``Simulator`` facade of the port.
 
-The PyTorch counterpart of ``ssrs_tpu/simulator.py`` for uniform mode:
-the ``fluidflow`` run, with the directional potential from the refined
-solver on the run's device (``potential_solver='auto'``, the default, or
-``'refined'``) or from the host float64 direct solve (``'direct'``,
-``'dense'``), and the directed random walk (``'drw'``, no potential);
-thermal realizations (``thermals_realization_count``); the wind-direction
-sweep (``simulate_direction_sweep``); recorded trajectories for runs up
-to ``track_pkl_budget`` tracks (the default ``track_count``) and presence
+The PyTorch counterpart of ``ssrs_tpu/simulator.py``: uniform, snapshot
+and seasonal mode (the last two from WindToolKit winds, interpolated to
+the grid on the host), the ``fluidflow`` run, with the directional
+potential from the refined solver on the run's device
+(``potential_solver='auto'``, the default, or ``'refined'``) or from the
+host float64 direct solve (``'direct'``, ``'dense'``), and the directed
+random walk (``'drw'``, no potential); thermal realizations
+(``thermals_realization_count``); the wind-direction sweep
+(``simulate_direction_sweep``); recorded trajectories for runs up to
+``track_pkl_budget`` tracks (the default ``track_count``) and presence
 counts alone above, where several (case, realization) populations go
-through the interleaved multi-case driver. It keeps the JAX package's
-constructor flow (region -> terrain -> orographic updraft -> thermals),
-its output-directory layout and its artifact names and formats
-(``*_orograph.npy``, ``*_thermals.npy``, ``*_potential.npy``,
+through the interleaved multi-case driver; the turbines of the USWTDB and
+their presence scores (``get_turbine_presence``). It keeps the JAX
+package's constructor flow (region -> terrain -> turbines -> wind ->
+updraft fields), its output-directory layout and its artifact names and
+formats (``turbines.csv``, ``wtk_locations.csv``, ``y..._wtk.csv``,
+``*_orograph.npy``, ``*_thermals.npy``, ``*_potential.npy``,
 ``*_tracks.pkl``, ``*_counts.npy``, ``summary_presence.npy``,
-``phase_timings.json``), so one package's cached fields feed the other.
+``phase_timings.json``), so one package's cached files feed the other.
 
 Every configuration not ported yet raises ``NotImplementedError`` naming
-its item in ROADMAP.md. Turbines (USWTDB) and plotting are not
-ported; the terrain is the offline synthetic DEM.
+its item in ROADMAP.md. Plotting is not ported.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ import os
 import pickle
 import time
 from dataclasses import asdict
-from typing import List
+from datetime import datetime
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -44,24 +48,19 @@ from .agents.simulate import (TrackParams, prepared_weights_batch,
                               simulate_presence_compacting,
                               simulate_tracks_recorded)
 from .agents.starts import get_starting_indices
-from .data import (Terrain, get_raster_in_projected_crs, transform_bounds,
-                   transform_coordinates)
+from .data import (Terrain, TurbinesUSWTB, get_raster_in_projected_crs,
+                   transform_bounds, transform_coordinates)
 from .fields import (compute_orographic_updraft,
                      compute_slope_aspect_degrees, compute_thermals,
                      get_above_threshold_speed)
 from .potential.boundary import boundary_masks
 from .potential.direct import fallback_cost_estimate, solve_potential_direct
-from .utils import makedir_if_not_exists
+from .utils import get_seasonal_datetimes_list, makedir_if_not_exists
 
 
 def _check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for a configuration not ported yet."""
     todo = 'ROADMAP.md, "Modules still to port"'
-    if str(cfg.sim_mode).lower() != 'uniform':
-        raise NotImplementedError(
-            f'sim_mode={cfg.sim_mode!r}: only uniform mode is ported; '
-            f'snapshot and seasonal modes wait for WTK ({todo}: data '
-            'sources)')
     solver = (cfg.potential_solver or 'auto').lower()
     if solver in ('mg', 'multigrid'):
         raise NotImplementedError(
@@ -94,6 +93,7 @@ class Simulator(Config):
     one PyTorch device (default ``'cuda'``)."""
 
     lonlat_crs = 'EPSG:4326'
+    time_format = 'y%Ym%md%dh%H'
 
     def __init__(self, in_config: Config = None, device='cuda',
                  **kwargs) -> None:
@@ -146,18 +146,58 @@ class Simulator(Config):
         self.lonlat_bounds = transform_bounds(
             self.bounds, self.projected_crs, self.lonlat_crs)
 
-        # terrain: the offline synthetic DEM (the JAX package's chain
-        # 3DEP -> SRTM -> synthetic ends here without a network)
+        # terrain layers (ssrs/simulator.py:87-99), with the offline
+        # synthetic fallback appended to the reference's 3DEP->SRTM chain
         self.region = Terrain(self.lonlat_bounds, self.data_dir)
-        self.terrain_layers = {'Elevation': 'SYNTHETIC'}
         with self.timer.phase('terrain'):
-            self.region.download(list(self.terrain_layers.values()))
+            self._setup_terrain()
 
-        print(f'Uniform mode: Wind speed = {self.uniform_windspeed} m/s')
-        print(f'Uniform mode: Wind dirn = {self.uniform_winddirn} deg(cw)')
-        self.case_ids = [self._get_uniform_id()]
-        with self.timer.phase('updrafts'):
-            self.compute_orographic_updraft_uniform()
+        # turbines (ssrs/simulator.py:101-105)
+        turbine_fpath = os.path.join(self.mode_data_dir, 'turbines.csv')
+        with self.timer.phase('turbines'):
+            self.turbines = TurbinesUSWTB(
+                self.bounds, self.projected_crs,
+                self.turbine_minimum_hubheight, turbine_fpath,
+                self.print_verbose)
+
+        # WTK layer names (ssrs/simulator.py:107-115)
+        self.wtk_layers = {
+            'wspeed': f'windspeed_{int(self.wtk_orographic_height)}m',
+            'wdirn': f'winddirection_{int(self.wtk_orographic_height)}m',
+            'pressure': f'pressure_{int(self.wtk_thermal_height)}m',
+            'temperature': f'temperature_{int(self.wtk_thermal_height)}m',
+            'blheight': 'boundary_layer_height',
+            'surfheatflux': 'surface_heat_flux',
+        }
+
+        # mode dispatch (ssrs/simulator.py:117-133)
+        if self.sim_mode.lower() != 'uniform':
+            from .data import WTK
+            wtk_kw = {}
+            if self.wtk_source == 'LOCAL':
+                wtk_kw = dict(local_template=self.wtk_local_template,
+                              local_years=list(self.wtk_local_years))
+            self.wtk = WTK(self.wtk_source, self.lonlat_bounds,
+                           list(self.wtk_layers.values()),
+                           self.mode_data_dir, **wtk_kw)
+            if self.sim_mode.lower() == 'seasonal':
+                # from the run's rng, before the starts draw from it
+                self.dtimes = self.get_seasonal_datetimes()
+            elif self.sim_mode.lower() == 'snapshot':
+                self.dtimes = [datetime(*self.snapshot_datetime)]
+            with self.timer.phase('wtk_download', cases=len(self.dtimes)):
+                self.wtk.download_data(self.dtimes, self.max_cores)
+            self.case_ids = [dt.strftime(self.time_format)
+                             for dt in self.dtimes]
+            with self.timer.phase('updrafts', cases=len(self.dtimes)):
+                self.compute_orographic_updrafts_using_wtk()
+        else:
+            print(f'Uniform mode: Wind speed = {self.uniform_windspeed} m/s')
+            print(f'Uniform mode: Wind dirn = {self.uniform_winddirn} '
+                  'deg(cw)')
+            self.case_ids = [self._get_uniform_id()]
+            with self.timer.phase('updrafts'):
+                self.compute_orographic_updraft_uniform()
         with self.timer.phase('thermals', realizations=int(
                 self.thermals_realization_count)):
             for case_id in self.case_ids:
@@ -166,21 +206,64 @@ class Simulator(Config):
 
     # ---- terrain ---------------------------------------------------------
 
-    def get_terrain_elevation(self) -> np.ndarray:
-        """The DEM on the run grid (float64, lower-left origin)."""
+    def _setup_terrain(self):
+        """3DEP -> SRTM -> synthetic source chain
+        (ssrs/simulator.py:87-99 + offline fallback)."""
+        try:
+            self.terrain_layers = {
+                'Elevation': 'DEM',
+                'Slope': 'Slope Degrees',
+                'Aspect': 'Aspect Degrees',
+            }
+            self.region.download(list(self.terrain_layers.values()))
+        except Exception:
+            print('Connection issues with 3DEP WMS service! Trying SRTM1..')
+            try:
+                self.terrain_layers = {'Elevation': 'SRTM1'}
+                self.region.download(list(self.terrain_layers.values()))
+            except Exception:
+                print('SRTM unavailable too! Using synthetic terrain '
+                      '(offline mode).')
+                self.terrain_layers = {'Elevation': 'SYNTHETIC'}
+                self.region.download(list(self.terrain_layers.values()))
+
+    def get_terrain_layer(self, lname: str) -> np.ndarray:
+        """A terrain layer on the run grid (float64, lower-left origin)."""
         return get_raster_in_projected_crs(
-            self.region.get_raster_fpath(self.terrain_layers['Elevation']),
+            self.region.get_raster_fpath(self.terrain_layers[lname]),
             self.bounds, self.gridsize, self.resolution,
             self.projected_crs)
 
+    def get_terrain_elevation(self) -> np.ndarray:
+        return self.get_terrain_layer('Elevation')
+
     def _slope_aspect(self):
-        # float32, as the JAX package computes with 64-bit types off
-        elev = torch.from_numpy(
-            self.get_terrain_elevation().astype(np.float32)).to(self.device)
-        return compute_slope_aspect_degrees(elev, self.resolution)
+        """(slope, aspect) in degrees, float32 tensors on the run's device:
+        the source's ``Slope`` and ``Aspect`` layers where it has them
+        (3DEP), else the Horn stencil on the DEM
+        (ssrs/simulator.py:152-159). The uniform and the WTK updrafts,
+        the thermal fields and the sweep all read these."""
+        horn = None
+        out = []
+        for i, lname in enumerate(('Slope', 'Aspect')):
+            try:
+                layer = torch.from_numpy(self.get_terrain_layer(
+                    lname).astype(np.float32)).to(self.device)
+            except Exception:
+                if horn is None:
+                    # float32, as the JAX package computes with 64-bit
+                    # types off
+                    elev = torch.from_numpy(self.get_terrain_elevation()
+                                            .astype(np.float32))
+                    horn = compute_slope_aspect_degrees(
+                        elev.to(self.device), self.resolution)
+                layer = horn[i]
+            out.append(layer)
+        return tuple(out)
 
     def get_terrain_slope(self) -> np.ndarray:
-        """Horn-stencil slope from the DEM (ssrs/simulator.py:152-159)."""
+        """Slope layer, or Horn-stencil recompute from the DEM
+        (ssrs/simulator.py:152-159)."""
         return self._slope_aspect()[0].cpu().numpy()
 
     def get_terrain_aspect(self) -> np.ndarray:
@@ -209,6 +292,32 @@ class Simulator(Config):
         fname = self._get_orograph_fname(self.case_ids[0],
                                          self.mode_data_dir)
         np.save(f'{fname}.npy', orograph.cpu().numpy().astype(np.float32))
+
+    def compute_orographic_updrafts_using_wtk(self) -> None:
+        """Per-datetime WTK-interpolated updrafts
+        (ssrs/simulator.py:200-215): each case's winds are read from the
+        WTK cache and interpolated to the grid on the host (scipy), the
+        updraft is computed on the run's device and saved as
+        ``{case}_orograph.npy``. One ``wtk_frame`` and one ``wtk_interp``
+        phase record a case."""
+        print('Computing orographic updrafts..', end='')
+        slope, aspect = self._slope_aspect()
+        start_time = time.time()
+        for dtime, case_id in zip(self.dtimes, self.case_ids):
+            with self.timer.phase('wtk_frame', id=case_id):
+                wtk_df = self.wtk.get_dataframe_for_this_time(dtime)
+            with self.timer.phase('wtk_interp', id=case_id):
+                wspeed, wdirn = self._get_interpolated_wind_conditions(
+                    wtk_df[self.wtk_layers['wspeed']],
+                    wtk_df[self.wtk_layers['wdirn']])
+            orograph = compute_orographic_updraft(
+                torch.from_numpy(wspeed.astype(np.float32)).to(self.device),
+                torch.from_numpy(wdirn.astype(np.float32)).to(self.device),
+                slope, aspect)
+            fname = self._get_orograph_fname(case_id, self.mode_data_dir)
+            np.save(f'{fname}.npy',
+                    orograph.cpu().numpy().astype(np.float32))
+        print(f'took {elapsed_str(start_time)}', flush=True)
 
     def compute_thermal_updrafts(self, case_id: str) -> None:
         """Thermal realizations (ssrs/simulator.py:217-228), each from
@@ -763,6 +872,84 @@ class Simulator(Config):
             np.save(f'{fname}.npy', summary_prob.astype(np.float32))
         self._dump_phase_timings()
         return summary_prob
+
+    def get_turbine_presence(self, radius: float = 1000.):
+        """Turbine-conflict scores: relative presence density at each
+        turbine location (the analysis the reference sketches but leaves
+        commented out, ssrs/simulator.py:594-607). Returns the turbines'
+        table with a ``presence`` column, sorted by it, descending."""
+        if self.turbines.dframe is None:
+            raise RuntimeError('No turbine data available '
+                               '(USWTDB fetch failed or out of bounds)')
+        summary = self.compute_presence_map(radius=radius)
+        xlocs, ylocs = self.turbines.get_locations()
+        xgrid, ygrid = self.get_terrain_grid()
+        cols = np.clip(np.searchsorted(xgrid, xlocs), 0,
+                       self.gridsize[1] - 1)
+        rows = np.clip(np.searchsorted(ygrid, ylocs), 0,
+                       self.gridsize[0] - 1)
+        out = self.turbines.dframe.assign(presence=summary[rows, cols])
+        return out.sort_values('presence', ascending=False)
+
+    # ---- WTK wind interpolation -----------------------------------------
+
+    def get_wtk_locs(self):
+        wtk_lons, wtk_lats = self.wtk.get_coordinates()
+        return transform_coordinates(self.lonlat_crs, self.projected_crs,
+                                     wtk_lons, wtk_lats)
+
+    def _interpolate_wtk_vardata(self, vdata: np.ndarray) -> np.ndarray:
+        """Unstructured -> grid interpolation on the host
+        (ssrs/simulator.py:765-776)."""
+        from scipy.interpolate import griddata
+        xgrid, ygrid = self.get_terrain_grid()
+        wtk_xlocs, wtk_ylocs = self.get_wtk_locs()
+        points = np.array([np.asarray(wtk_xlocs),
+                           np.asarray(wtk_ylocs)]).T
+        xmesh, ymesh = np.meshgrid(xgrid, ygrid)
+        try:
+            interp = griddata(points, np.asarray(vdata), (xmesh, ymesh),
+                              method=self.wtk_interp_type)
+        except Exception:
+            # linear/cubic need a triangulable point cloud; tiny regions
+            # may contain too few WTK points for one
+            interp = None
+        nearest = griddata(points, np.asarray(vdata), (xmesh, ymesh),
+                           method='nearest')
+        if interp is None:
+            return nearest
+        # grid cells outside the WTK convex hull get nearest-neighbor
+        return np.where(np.isnan(interp), nearest, interp)
+
+    def _get_interpolated_wind_conditions(
+            self, wspeed, wdirn) -> Tuple[np.ndarray, np.ndarray]:
+        """Vector-decompose, interpolate, recompose
+        (ssrs/simulator.py:778-792)."""
+        wspeed = np.asarray(wspeed, float)
+        wdirn = np.asarray(wdirn, float)
+        easterly = wspeed * np.sin(np.radians(wdirn))
+        northerly = wspeed * np.cos(np.radians(wdirn))
+        interp_e = self._interpolate_wtk_vardata(easterly)
+        interp_n = self._interpolate_wtk_vardata(northerly)
+        interp_speed = np.hypot(interp_e, interp_n)
+        interp_dirn = np.mod(np.arctan2(interp_e, interp_n) + 2 * np.pi,
+                             2 * np.pi)
+        return interp_speed, np.degrees(interp_dirn)
+
+    # ---- seasonal sampling ----------------------------------------------
+
+    def get_seasonal_datetimes(self) -> List[datetime]:
+        """Seeded seasonal datetime sampler (ssrs/simulator.py:718-752),
+        driven by the run's rng as in the JAX package, so that a seed
+        gives both packages the same cases."""
+        print(f'Seasonal: Requested {self.seasonal_count} counts')
+        print(f'Seasonal: Starting Month,Day is {self.seasonal_start}')
+        print(f'Seasonal: Ending Month,Day is {self.seasonal_end}')
+        print(f'Seasonal: Time of day is {self.seasonal_timeofday}')
+        return get_seasonal_datetimes_list(
+            self.wtk.years, self.seasonal_start, self.seasonal_end,
+            self.seasonal_timeofday, self.seasonal_count,
+            tuple(self.lonlat_bounds[0:2]), self._rng)
 
     # ---- misc ------------------------------------------------------------
 

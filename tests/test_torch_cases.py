@@ -613,6 +613,16 @@ def _offline(*args, **kwargs):
     raise requests.exceptions.ConnectionError('network disabled in tests')
 
 
+@pytest.fixture(scope='module', autouse=True)
+def _no_network():
+    """Every HTTP request of this module is refused: both packages' terrain
+    chains then end at the synthetic DEM and their turbine fetches at
+    None."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(requests, 'get', _offline)
+        yield
+
+
 def _artifacts(sim):
     return sorted(n for n in os.listdir(sim.mode_data_dir)
                   if n.endswith(('.npy', '.pkl')))

@@ -29,6 +29,25 @@ GRID = (48, 56)
 N = 2000
 
 
+@pytest.fixture(scope='module', autouse=True)
+def _no_network():
+    """Every HTTP request of this module is refused, where the machine has
+    ``requests`` at all: the simulators' terrain chain (3DEP -> SRTM ->
+    synthetic) ends at the synthetic DEM and the turbine fetch at None."""
+    try:
+        import requests
+    except ImportError:
+        yield
+        return
+
+    def refuse(*args, **kwargs):
+        raise requests.exceptions.ConnectionError('network disabled in tests')
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(requests, 'get', refuse)
+        yield
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -28,6 +28,7 @@ Inputs come from numpy seeds and go through both packages. Tolerances:
 import jax
 import numpy as np
 import pytest
+import requests
 import torch
 
 import jax.numpy as jnp
@@ -44,6 +45,20 @@ from ssrs_tpu_torch.potential.direct import interior_residual
 from ssrs_tpu_torch.potential.fields import conductivity_hard, speckle
 
 from test_potential import _conductivity_hard, _conductivity_moderate
+
+
+def _offline(*args, **kwargs):
+    raise requests.exceptions.ConnectionError('network disabled in tests')
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _no_network():
+    """Every HTTP request of this module is refused: both packages' terrain
+    chains then end at the synthetic DEM and their turbine fetches at
+    None."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(requests, 'get', _offline)
+        yield
 
 
 @pytest.fixture(autouse=True, scope='module')

@@ -60,6 +60,16 @@ def _offline(*args, **kwargs):
     raise requests.exceptions.ConnectionError('network disabled in tests')
 
 
+@pytest.fixture(scope='module', autouse=True)
+def _no_network():
+    """Every HTTP request of this module is refused: both packages' terrain
+    chains then end at the synthetic DEM and their turbine fetches at
+    None."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(requests, 'get', _offline)
+        yield
+
+
 @pytest.fixture(scope='module')
 def sims(tmp_path_factory):
     root = tmp_path_factory.mktemp('slice')
@@ -172,8 +182,6 @@ def test_default_device_needs_a_card(tmp_path):
 
 
 @pytest.mark.parametrize('override', [
-    dict(sim_mode='seasonal'), dict(sim_mode='snapshot'),
-    dict(sim_mode='snapshot', thermals_realization_count=1),
     dict(mesh_devices=2, movement_model='drw'),
     dict(potential_solver='mg'), dict(track_presence_impl='scatter'),
     dict(mesh_devices=2), dict(track_step_impl='xla'),
@@ -184,6 +192,21 @@ def test_out_of_slice_configs_raise(tmp_path, override):
                                 **{**CONFIG, **override})
     with pytest.raises(NotImplementedError, match='ROADMAP|engine'):
         ssrs_tpu_torch.Simulator(cfg, device='cpu')
+
+
+def test_unknown_terrain_layer_raises_value_error(sims):
+    """An unknown terrain layer is a ValueError with the JAX package's
+    message, in both packages."""
+    jax_sim, port, _, _ = sims
+    msgs = []
+    for sim in (jax_sim, port):
+        with pytest.raises(ValueError, match='Invalid layer name') as err:
+            sim.region.download('Moon Dust')
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
+    assert port.terrain_layers == jax_sim.terrain_layers == \
+        {'Elevation': 'SYNTHETIC'}
+    assert port.turbines.dframe is None
 
 
 def test_refined_run_matches_jax_auto_and_direct(sims, tmp_path):
