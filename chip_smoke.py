@@ -62,6 +62,18 @@ turbines (``turbines.csv``, the counts against the recount of
 script registers a ``requests`` of its own that refuses every request, so
 every run is offline: the terrain is the synthetic DEM.
 
+The command line, ``python -m ssrs_tpu_torch``: ``info`` in a subprocess
+(it must name the card); then ``run`` in this process, behind the refusing
+``requests``: the main run again from the JSON its ``Simulator`` wrote
+(counts and summary bitwise equal, the potential from the cache), the
+reference's three example regions at their published size (Altamont Pass
+800x600 and Appalachian 600x700 at 100 m, JEM 1000x1000 at 50 m; wind
+270 deg at 10 m/s, 1,000 recorded tracks each: solver record, launches
+against chunks and flushes, counts against the ``.pkl`` recount), one
+region's presence map again from its ``.pkl`` (one launch of the count
+kernel), and the figures: drawn where matplotlib imports, else ``run``
+without ``--no-plots`` must raise ``ImportError`` before any output.
+
 Every phase prints one line; any failure exits non-zero. The last three
 lines are a JSON object with the solver's, the track engine's, the
 count's and the multi-case paths' numbers, one with the kernels' numbers
@@ -182,6 +194,30 @@ SEASONAL_COUNT = 8
 # realization, and a fixture of this many turbines
 SNAPSHOT_DATETIME = (2012, 6, 17, 13)
 SNAPSHOT_TURBINES = 48
+# the reference's example regions (examples/*.py; copied, since those
+# modules import ssrs_tpu), each in the uniform variant of
+# examples/_demo.py:35-37, at its published size: (rows, cols) of the grid,
+# the config, the source. The seed is the main run's, so that every call
+# runs the same tracks (the examples leave it at -1, a fresh seed a run).
+CLI_COMMON = dict(sim_mode='uniform', uniform_winddirn=270.,
+                  uniform_windspeed=10., track_direction=0.,
+                  track_count=1000, sim_seed=7)
+CLI_REGIONS = {
+    'altamont_pass': ((800, 600), dict(
+        southwest_lonlat=(-121.98, 37.56), region_width_km=(60., 80.),
+        resolution=100., track_start_region=(2., 58., 0., 1.)),
+        'examples/example_altamontpass.py:17-26'),
+    'appalachian': ((600, 700), dict(
+        southwest_lonlat=(-79.7, 39.), region_width_km=(70., 60.),
+        resolution=100., track_start_region=(2., 68., 0., 1.)),
+        'examples/example_appalachian.py:15-24'),
+    'jem_wy': ((1000, 1000), dict(
+        southwest_lonlat=(-106.21, 42.78), region_width_km=(50., 50.),
+        resolution=50., track_start_region=(2., 48., 0., 1.)),
+        'examples/example_jem.py:16-25'),
+}
+# the region whose presence map is computed again from its .pkl
+CLI_RECOUNT_REGION = 'appalachian'
 # an orograph on the card against the CPU's on the same winds: float32
 # sines and cosines that differ by ulps (the tolerance of the tests'
 # fields against the JAX package's)
@@ -1163,6 +1199,57 @@ def _chunk_segments(torch, state0, whole, chunk, u):
     return out
 
 
+def _run_table(torch, sim):
+    """A uniform run's track parameters, directional bias, restriction
+    table, table (rebuilt from its updraft and cached potential) and start
+    cells, the tensors on the run's device."""
+    from ssrs_tpu_torch.agents.moves import (directional_probs,
+                                             restriction_table)
+    from ssrs_tpu_torch.agents.simulate import prepared_weights
+    dev = sim.device
+    params = sim._track_params()
+    case = sim.case_ids[0]
+    ident = sim._get_id_string(case, 0)
+    pot = torch.from_numpy(np.load(os.path.join(
+        sim.mode_data_dir, f'{ident}_potential.npy'))).to(dev)
+    dirp = torch.from_numpy(directional_probs(params.move_dirn)).to(dev)
+    restr = torch.from_numpy(restriction_table()).to(dev)
+    table = prepared_weights(sim.load_updrafts(case)[0].float(), pot, dirp,
+                             params.weight_dtype)
+    return params, dirp, restr, table, _run_starts(sim)
+
+
+def _chunk_against_plain(torch, sim, label):
+    """One CHUNK_T-step launch of the chunk kernel on ``sim``'s own table
+    and starts against the plain version from the same state with the
+    same uniforms: the states must be exactly equal. Returns the largest
+    difference of the maps (0), the agents, the live agent-steps and the
+    visited cells."""
+    from ssrs_tpu_torch.agents.fused_chunk import (fused_chunk,
+                                                   fused_chunk_plain)
+    from ssrs_tpu_torch.agents.simulate import init_state
+    params, dirp, restr, table, starts = _run_table(torch, sim)
+    state0 = init_state(params, starts, device=sim.device)
+    n = state0.pos_r.shape[0]
+    u = torch.rand((CHUNK_T, n), device=sim.device, generator=torch.Generator(
+        device=sim.device).manual_seed(2032))
+    runs = []
+    for fn in (fused_chunk, fused_chunk_plain):
+        st = _fresh(torch, state0)
+        fn(table, restr, dirp, st.pos_r, st.pos_c, st.mem, st.alive,
+           st.palive, u, st.presence, s0=0, nu=params.nu,
+           memory_k=params.memory_k, burnin=params.burnin,
+           nsteps=params.nsteps)
+        runs.append(st)
+    got, plain = runs
+    err = int((got.presence - plain.presence).abs().max())
+    diff = _state_diff(torch, got, plain)
+    if diff:
+        fail(f'{label}: the {CHUNK_T}-step chunk on the region\'s table '
+             f'differs from the plain version in {diff}')
+    return err, n, _live_steps(state0, got), int((got.presence > 0).sum())
+
+
 def phase_chunk_main(torch, sim, device_name):
     """The chunk kernel on the main run's own table (rebuilt from its
     updraft and cached potential) and starts: one CHUNK_T-step launch
@@ -1176,23 +1263,13 @@ def phase_chunk_main(torch, sim, device_name):
     same width."""
     from ssrs_tpu_torch.agents.fused_chunk import (fused_chunk,
                                                    fused_chunk_plain)
-    from ssrs_tpu_torch.agents.moves import (directional_probs,
-                                             restriction_table)
     from ssrs_tpu_torch.agents.simulate import (
-        init_state, make_step_fn, prepared_weights, simulate_presence,
+        init_state, make_step_fn, simulate_presence,
         simulate_presence_compacting)
     from ssrs_tpu_torch.core.rng import case_generator
     dev = sim.device
-    params = sim._track_params()
     case = sim.case_ids[0]
-    ident = sim._get_id_string(case, 0)
-    pot = torch.from_numpy(np.load(os.path.join(
-        sim.mode_data_dir, f'{ident}_potential.npy'))).to(dev)
-    dirp = torch.from_numpy(directional_probs(params.move_dirn)).to(dev)
-    restr = torch.from_numpy(restriction_table()).to(dev)
-    table = prepared_weights(sim.load_updrafts(case)[0].float(), pot, dirp,
-                             params.weight_dtype)
-    starts = _run_starts(sim)
+    params, dirp, restr, table, starts = _run_table(torch, sim)
     state0 = init_state(params, starts, device=dev)
     n = state0.pos_r.shape[0]
     gen = torch.Generator(device=dev).manual_seed(2030)
@@ -2486,6 +2563,258 @@ def phase_snapshot(torch, device_name, out, template):
                      'presence_min': float(pres.min())}}
 
 
+def _saved_run(sim):
+    """The run JSON that ``sim``'s constructor wrote, as bytes, and its run's
+    counts and summary."""
+    with open(os.path.join(sim.out_dir, sim.run_name,
+                           f'{sim.run_name}.json'), 'rb') as fobj:
+        text = fobj.read()
+    ident = sim._get_id_string(sim.case_ids[0], 0)
+    return {'json': text,
+            'counts': np.load(os.path.join(sim.mode_data_dir,
+                                           f'{ident}_counts.npy')),
+            'summary': np.load(os.path.join(sim.mode_data_dir,
+                                            'summary_presence.npy'))}
+
+
+def _cli_run(label, path, plots=False):
+    """``python -m ssrs_tpu_torch run path [--no-plots]``, called in this
+    process so that the script's refusing ``requests`` keeps it offline.
+    Checks the launches (one chunk launch a chunk, one flush launch a
+    flush); returns them, the run's phase records by name, its directory
+    and its wall seconds."""
+    from ssrs_tpu_torch.__main__ import main as cli_main
+    with open(path) as fobj:
+        cfg = json.load(fobj)
+    run_dir = os.path.join(cfg['out_dir'], cfg['run_name'])
+    _reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(['run', path] + ([] if plots else ['--no-plots']))
+    wall = time.perf_counter() - t0
+    launched = _read_counts()
+    if rc != 0:
+        fail(f'{label}: exit code {rc}')
+    with open(os.path.join(run_dir, 'phase_timings.json')) as fobj:
+        records = {r['phase']: r for r in json.load(fobj)}
+    _check_chunk_launches(label, launched, records['tracks']['steps'])
+    _check_flush_launches(label, launched)
+    return launched, records, run_dir, wall
+
+
+def phase_cli(torch, device_name, out, main_saved):
+    """``python -m ssrs_tpu_torch``: ``info`` in a subprocess, then, in this
+    process, the main run again from the JSON its ``Simulator`` wrote (with
+    the four keys that ``ssrs_tpu``'s own CLI refuses), the reference's
+    three example regions at their published size (uniform, 1,000
+    recorded tracks each), one region's presence map again from its
+    ``.pkl``, and the figures' need for matplotlib."""
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.__main__ import DERIVED_KEYS
+    from ssrs_tpu_torch.__main__ import main as cli_main
+    from ssrs_tpu_torch.agents.presence import track_points
+    from ssrs_tpu_torch.agents.presence_hist import (
+        presence_histogram_batch, presence_histogram_batch_plain)
+    info = subprocess.run([sys.executable, '-m', 'ssrs_tpu_torch', 'info'],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    if info.returncode != 0 or device_name not in info.stdout:
+        fail(f'cli info: exit {info.returncode}, output {info.stdout!r}, '
+             f'errors {info.stderr[-2000:]!r}')
+    say('cli info: ' + '; '.join(info.stdout.strip().splitlines()))
+    total = dict.fromkeys(_read_counts(), 0)
+
+    def add(launched):
+        for key, n in launched.items():
+            total[key] += n
+
+    # the main run again, from the JSON its Simulator wrote
+    path = os.path.join(out, 'cli_main.json')
+    with open(path, 'wb') as fobj:
+        fobj.write(main_saved['json'])
+    raw = json.loads(main_saved['json'])
+    if not set(DERIVED_KEYS) <= set(raw):
+        fail(f'cli rerun: the saved JSON lacks {DERIVED_KEYS}')
+    launched, records, run_dir, wall = _cli_run('cli rerun', path)
+    add(launched)
+    ident = records['tracks']['id']
+    data = os.path.join(run_dir, 'data', raw['sim_mode'])
+    counts = np.load(os.path.join(data, f'{ident}_counts.npy'))
+    summary = np.load(os.path.join(data, 'summary_presence.npy'))
+    if records['potential']['solver'] != 'cache':
+        fail('cli rerun: the potential was not read from the cache')
+    if counts.dtype != main_saved['counts'].dtype or \
+            not np.array_equal(counts, main_saved['counts']) or \
+            not np.array_equal(summary, main_saved['summary']):
+        fail('cli rerun: counts or summary_presence.npy differ from the '
+             'main run\'s')
+    rerun = {'wall_s': wall, 'steps': records['tracks']['steps'],
+             'tracks_s': records['tracks']['seconds'],
+             'fused_chunk': launched['fused_chunk'],
+             'presence_flush': launched['presence_flush']}
+    say(f'cli rerun of the main run from {raw["run_name"]}.json (keys '
+        f'{", ".join(DERIVED_KEYS)} included): potential from the cache, '
+        f'{rerun["steps"]} steps in {launched["fused_chunk"]} chunk '
+        f'launches, {launched["flushes"]} flushes through '
+        f'{launched["presence_flush"]} flush launches; counts and '
+        f'summary_presence.npy bitwise equal to the main run\'s; '
+        f'{wall:.3f} s on {device_name}')
+
+    # the example regions, each from a JSON of Config fields
+    regions, sims = {}, {}
+    for name, (shape, region, source) in CLI_REGIONS.items():
+        label = f'cli {name}'
+        cfg = Config(run_name=name, out_dir=out, **CLI_COMMON, **region)
+        path = os.path.join(out, f'cli_{name}.json')
+        cfg.to_json(path)
+        launched, records, run_dir, wall = _cli_run(label, path)
+        add(launched)
+        pot, trk = records['potential'], records['tracks']
+        ident = trk['id']
+        case = ident.split('_')[0]
+        data = os.path.join(run_dir, 'data', 'uniform')
+        names = {f'{case}_orograph.npy', f'{ident}_potential.npy',
+                 f'{ident}_tracks.pkl', f'{ident}_counts.npy',
+                 'summary_presence.npy'}
+        if set(os.listdir(data)) != names:
+            fail(f'{label}: artifacts {sorted(os.listdir(data))}')
+        counts = np.load(os.path.join(data, f'{ident}_counts.npy'))
+        summary = np.load(os.path.join(data, 'summary_presence.npy'))
+        if counts.shape != shape or counts.dtype != np.int32 or \
+                counts.min() < 0 or summary.shape != shape or \
+                summary.max() != 1.0:
+            fail(f'{label}: counts {counts.dtype} {counts.shape} or the '
+                 f'summary (max {summary.max()}) are not those of a '
+                 f'{shape[0]}x{shape[1]} run')
+        mass = int(counts.sum(dtype=np.int64))
+        # every track lives through the burn-in (min(shape) // 10 steps)
+        floor = cfg.track_count * (min(shape) // 10 + 1)
+        if mass < floor:
+            fail(f'{label}: presence mass {mass} < {floor}')
+        if not trk.get('recorded') or trk['builder'] != 'native':
+            fail(f'{label}: the tracks phase did not record with the C++ '
+                 'builder')
+        with open(os.path.join(data, f'{ident}_tracks.pkl'), 'rb') as fobj:
+            tracks = pickle.load(fobj)
+        rows, cols = track_points(tracks, torch.device('cuda'))
+        recount = presence_histogram_batch(rows, cols, *shape)
+        if len(tracks) != cfg.track_count or \
+                not np.array_equal(recount.cpu().numpy(), counts):
+            fail(f'{label}: _counts.npy differs from the recount of its '
+                 f'{len(tracks)} tracks')
+        # both kernels held against their plain versions at the region's
+        # shapes: C on the .pkl's points, A from the region's own starts
+        count_err = int((recount - presence_histogram_batch_plain(
+            rows, cols, *shape)).abs().max())
+        if count_err:
+            fail(f'{label}: the count of the .pkl differs from the plain '
+                 f'count by {count_err}')
+        sims[name] = Simulator(cfg)
+        chunk_err, n, live, cells = _chunk_against_plain(torch, sims[name],
+                                                         label)
+        phases = {k: records[k]['seconds'] for k in (
+            'terrain', 'updrafts', 'potential', 'tracks', 'write_tracks',
+            'simulate_tracks', 'presence_map')}
+        regions[name] = {
+            'grid': list(shape), 'source': source, 'wall_s': wall,
+            'phases_s': phases,
+            'solver': {k: pot[k] for k in ('solver', 'rrel', 'vcycles',
+                                           'fallback', 'passes')},
+            'steps': trk['steps'], 'useful_steps': trk['useful_steps'],
+            'chunks': math.ceil(trk['steps'] / DRIVER_CHUNK),
+            'fused_chunk': launched['fused_chunk'],
+            'flushes': launched['flushes'],
+            'presence_flush': launched['presence_flush'], 'mass': mass,
+            'count_points': int(rows.numel()),
+            'count_max_abs_err': count_err,
+            'chunk_against_plain': {'agents': n, 'steps': CHUNK_T,
+                                    'live_agent_steps': live,
+                                    'cells': cells,
+                                    'max_abs_err': chunk_err}}
+        say(f'{label}: the count kernel on the .pkl\'s {rows.numel()} '
+            f'points and one {CHUNK_T}-step chunk launch from the region\'s '
+            f'{n} starts on its {shape[0] * shape[1]}x9 table ({live} live '
+            f'agent-steps, {cells} cells) are exactly equal to their plain '
+            'versions')
+        say(f'{label} ({shape[0]}x{shape[1]} at {region["resolution"]:g} m, '
+            f'{source}): potential {_solver_line(pot).split(" ", 1)[1]}, '
+            f'{pot["vcycles"]} V-cycles, fallback {pot["fallback"]}; '
+            'phases (s): ' + ', '.join(f'{k} {v:.3f}'
+                                       for k, v in phases.items())
+            + f'; run {wall:.3f} s; {trk["steps"]} steps: '
+            f'{launched["fused_chunk"]} chunk launches for '
+            f'{regions[name]["chunks"]} chunks, {launched["presence_flush"]} '
+            f'flush launches for {launched["flushes"]} flushes; mass {mass} '
+            f'>= {floor}, = the recount of the .pkl; on {device_name}')
+
+    # one region's presence map again, without its _counts.npy: the .pkl
+    # recount, one launch of the count kernel
+    name = CLI_RECOUNT_REGION
+    sim = sims[name]
+    ident = sim._get_id_string(sim.case_ids[0], 0)
+    counts_path = os.path.join(sim.mode_data_dir, f'{ident}_counts.npy')
+    summary_path = os.path.join(sim.mode_data_dir, 'summary_presence.npy')
+    before = np.load(summary_path)
+    os.replace(counts_path, counts_path + '.moved')
+    _reset_counts()
+    sim.compute_presence_map()
+    recounted = _read_counts()
+    os.replace(counts_path + '.moved', counts_path)
+    if recounted['presence_histogram_batch'] != 1 or \
+            recounted['fused_chunk'] or recounted['fused_step'] or \
+            recounted['presence_flush'] or recounted['presence_histogram']:
+        fail(f'cli {name}: the presence map from the .pkl launched '
+             f'{recounted}, not the count kernel once')
+    if not np.array_equal(np.load(summary_path), before):
+        fail(f'cli {name}: the presence map from the .pkl differs')
+    add(recounted)
+    say(f'cli {name}: compute_presence_map() without _counts.npy: one '
+        'launch of the count kernel, summary_presence.npy bitwise equal')
+
+    # the figures need matplotlib: without it, run fails before any output
+    try:
+        import matplotlib.pyplot  # noqa: F401
+        import matplotlib
+        have_mpl = matplotlib.__version__
+    except ImportError:
+        have_mpl = None
+    name = CLI_RECOUNT_REGION
+    if have_mpl is None:
+        cfg = Config(run_name='cli_figures', out_dir=out, **CLI_COMMON,
+                     **CLI_REGIONS[name][1])
+        path = os.path.join(out, 'cli_figures.json')
+        cfg.to_json(path)
+        try:
+            cli_main(['run', path])
+        except ImportError as exc:
+            error = f'{type(exc).__name__}: {exc}'
+        else:
+            fail('cli figures: run without matplotlib and without '
+                 '--no-plots did not raise')
+        if os.path.exists(os.path.join(out, 'cli_figures')):
+            fail('cli figures: the run made its directory before it raised')
+        say(f'cli figures: matplotlib does not import here; run without '
+            f'--no-plots raised {error} before any output directory '
+            'existed')
+    else:
+        launched, _, run_dir, wall = _cli_run(
+            'cli figures', os.path.join(out, f'cli_{name}.json'), plots=True)
+        add(launched)
+        case = sim.case_ids[0]
+        want = {'elevation.png', 'slope.png', 'aspect.png',
+                f'uniform/{ident}_tracks.png',
+                f'uniform/{sim._get_id_string(case)}_presence.png'}
+        figs = {os.path.relpath(os.path.join(d, f),
+                                os.path.join(run_dir, 'figs'))
+                for d, _, files in os.walk(os.path.join(run_dir, 'figs'))
+                for f in files}
+        if figs != want:
+            fail(f'cli figures: {sorted(figs)}, not {sorted(want)}')
+        say(f'cli figures: matplotlib {have_mpl}; the {name} run with '
+            f'figures wrote {", ".join(sorted(figs))} in {wall:.3f} s')
+    return total, {'rerun': rerun, 'regions': regions,
+                   'matplotlib': have_mpl}
+
+
 def main() -> int:
     try:
         import torch
@@ -2509,6 +2838,7 @@ def main() -> int:
     hist = phase_hist(torch)
     with tempfile.TemporaryDirectory(dir=REPO, prefix='.smoke_') as out:
         main_run, sim = phase_main(torch, name, out)
+        main_saved = _saved_run(sim)
         solver = phase_solver(torch, sim, name)
         engine = phase_chunk_main(torch, sim, name)
         recorded, count_real = phase_recorded(torch, name, out)
@@ -2520,6 +2850,7 @@ def main() -> int:
         seasonal_run, seasonal = phase_seasonal(torch, name, out, template,
                                                 wtk_reads)
         snapshot_run, snapshot = phase_snapshot(torch, name, out, template)
+        cli_run, cli = phase_cli(torch, name, out, main_saved)
     phase_small(torch)
     # the port took in no JAX, and no pandas or requests either: the only
     # ``requests`` is the script's own, which refuses
@@ -2530,6 +2861,11 @@ def main() -> int:
     bf16, f32 = timing['bfloat16'], timing['float32']
     flush_real, flush_syn = engine['flush_real'], hist['presence_flush']
     count_syn = hist['presence_histogram_batch']
+    # the example regions' shapes: A and C against their plain versions
+    cli_chunk_err = max(r['chunk_against_plain']['max_abs_err']
+                        for r in cli['regions'].values())
+    cli_count_err = max(r['count_max_abs_err']
+                        for r in cli['regions'].values())
     kernels = [{
         'name': 'fused_step', 'route': 'cuda',
         'source': 'ssrs_tpu_torch/csrc/fused_step.cu',
@@ -2549,7 +2885,8 @@ def main() -> int:
         'replaces': 'ssrs_tpu/agents/fused_step.py:52',
         'path': 'uniform run (simulate_presence_compacting)',
         'launches': main_run['fused_chunk'],
-        'max_abs_err': max(chunk_err, no_table['max_abs_err']),
+        'max_abs_err': max(chunk_err, no_table['max_abs_err'],
+                           cli_chunk_err),
         'ms': engine['chunk_ms'],
         'plain_ms': engine['plain_ms'], 'bound_ms': engine['bound_ms'],
         'bound_by': engine['bound_by'], 'library_ms': None,
@@ -2593,7 +2930,7 @@ def main() -> int:
         'path': "get_presence_counts' .pkl fallback",
         'launches': recorded['presence_histogram_batch'],
         'max_abs_err': max(count_real['max_abs_err'],
-                           count_syn['max_abs_err']),
+                           count_syn['max_abs_err'], cli_count_err),
         **{k: count_real[k] for k in (
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'plan',
             'kernels_ms', 'host_ms')},
@@ -2613,7 +2950,8 @@ def main() -> int:
                      'launches_thermals_run': thermals_run,
                      'launches_drw_run': drw_run,
                      'launches_seasonal_run': seasonal_run,
-                     'launches_snapshot_run': snapshot_run}
+                     'launches_snapshot_run': snapshot_run,
+                     'launches_cli_run': cli_run}
         for key, counted in new_paths.items():
             k[key] = counted[k['name']]
             if k[key] < 1 and k['name'] in ('fused_chunk', 'presence_flush'):
@@ -2622,6 +2960,10 @@ def main() -> int:
                 k['launches_snapshot_run'] < 1:
             fail('presence_histogram_batch: not launched by the snapshot '
                  "run's recounts")
+        if k['name'] == 'presence_histogram_batch' and \
+                k['launches_cli_run'] < 1:
+            fail('presence_histogram_batch: not launched by the cli '
+                 "phase's presence map from the .pkl")
         # the weighted histogram is a standalone kernel, as in ssrs_tpu:
         # no path runs it since the flush has its own kernel (phase_hist
         # holds it against its plain version all the same)
@@ -2633,7 +2975,7 @@ def main() -> int:
                                         'count_sweep')}
     cases = {'no_table': no_table, 'thermals': thermals, 'sweep': sweep,
              'thermals_run': thermals_path, 'drw': drw,
-             'seasonal': seasonal, 'snapshot': snapshot}
+             'seasonal': seasonal, 'snapshot': snapshot, 'cli': cli}
     print(json.dumps({'solver': solver, 'engine': engine, 'count': count,
                       'cases': cases}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -18,10 +18,12 @@ updraft fields), its output-directory layout and its artifact names and
 formats (``turbines.csv``, ``wtk_locations.csv``, ``y..._wtk.csv``,
 ``*_orograph.npy``, ``*_thermals.npy``, ``*_potential.npy``,
 ``*_tracks.pkl``, ``*_counts.npy``, ``summary_presence.npy``,
-``phase_timings.json``), so one package's cached files feed the other.
+``phase_timings.json``), so one package's cached files feed the other;
+and the reference's figures (``plotting.py``), drawn with matplotlib where
+it is installed.
 
 Every configuration not ported yet raises ``NotImplementedError`` naming
-its item in ROADMAP.md. Plotting is not ported.
+its item in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -40,8 +42,7 @@ from .config import Config
 from .core.grid import Grid
 from .core.rng import case_generator
 from .core.timing import PhaseTimer, elapsed_str
-from .agents.presence import (card_or_raise, compute_presence_counts,
-                              smooth_presence)
+from .agents.presence import card_or_raise, compute_presence_counts
 from .agents.moves import directional_probs
 from .agents.simulate import (TrackParams, prepared_weights_batch,
                               simulate_presence_cases_compacting,
@@ -53,6 +54,7 @@ from .data import (Terrain, TurbinesUSWTB, get_raster_in_projected_crs,
 from .fields import (compute_orographic_updraft,
                      compute_slope_aspect_degrees, compute_thermals,
                      get_above_threshold_speed)
+from .plotting import PlottingMixin
 from .potential.boundary import boundary_masks
 from .potential.direct import fallback_cost_estimate, solve_potential_direct
 from .utils import get_seasonal_datetimes_list, makedir_if_not_exists
@@ -88,7 +90,7 @@ def _check_slice(cfg: Config) -> None:
             "fused step kernel); only 'auto' (or 'fused') is accepted")
 
 
-class Simulator(Config):
+class Simulator(PlottingMixin, Config):
     """SSRS simulation orchestrator (reference: ssrs/simulator.py:34), on
     one PyTorch device (default ``'cuda'``)."""
 
@@ -202,6 +204,12 @@ class Simulator(Config):
                 self.thermals_realization_count)):
             for case_id in self.case_ids:
                 self.compute_thermal_updrafts(case_id)
+
+        # plotting settings (ssrs/simulator.py:138-142)
+        fig_aspect = self.region_width_km[0] / self.region_width_km[1]
+        self.fig_size = (self.fig_height * fig_aspect, self.fig_height)
+        self.km_bar = min([1, 5, 10], key=lambda x: abs(
+            x - self.region_width_km[0] // 4))
         print('SSRS Simulator initiation done.')
 
     # ---- terrain ---------------------------------------------------------
@@ -817,6 +825,11 @@ class Simulator(Config):
                             f'{self._get_id_string(case_id, real_id)}'
                             '_tracks')
 
+    def _get_presence_fname(self, case_id, real_id, dirname):
+        return os.path.join(dirname,
+                            f'{self._get_id_string(case_id, real_id)}'
+                            '_presence')
+
     def get_presence_counts(self, case_id: str, real_id: int) -> np.ndarray:
         """Presence counts of one realization: the ``_counts.npy``
         artifact when present, else the recount of the ``_tracks.pkl``
@@ -836,28 +849,6 @@ class Simulator(Config):
 
     # ---- presence maps ---------------------------------------------------
 
-    def _presence_kernel_radius(self, radius: float) -> int:
-        """Smoothing kernel radius in cells, clamped to [2, grid/2]."""
-        return int(round(min(max(radius / self.resolution, 2),
-                             min(self.gridsize) / 2)))
-
-    def _smoothed_presence(self, case_id, real_id, krad: int) -> np.ndarray:
-        """Max-normalized smoothed presence probability of one
-        realization."""
-        counts = torch.from_numpy(
-            self.get_presence_counts(case_id, real_id).astype(np.int32))
-        prob = smooth_presence(counts.to(self.device), krad).cpu().numpy()
-        return prob / np.amax(prob)
-
-    def _case_presence(self, case_id, krad: int) -> np.ndarray:
-        """Sum of a case's per-realization probabilities (realization 0 is
-        orographic only; 1.. add the thermal realizations),
-        max-normalized."""
-        case_prob = np.zeros(self.gridsize, np.float64)
-        for real_id in range(1 + int(self.thermals_realization_count)):
-            case_prob += self._smoothed_presence(case_id, real_id, krad)
-        return case_prob / np.amax(case_prob)
-
     def compute_presence_map(self, radius: float = 1000.) -> np.ndarray:
         """Summary presence probability over all cases and realizations
         (the computation inside ``plot_presence_map``,
@@ -867,9 +858,7 @@ class Simulator(Config):
         with self.timer.phase('presence_map'):
             for case_id in self.case_ids:
                 summary_prob += self._case_presence(case_id, krad)
-            summary_prob = summary_prob / np.amax(summary_prob)
-            fname = os.path.join(self.mode_data_dir, 'summary_presence')
-            np.save(f'{fname}.npy', summary_prob.astype(np.float32))
+            summary_prob = self._finish_summary_presence(summary_prob)
         self._dump_phase_timings()
         return summary_prob
 

@@ -1,14 +1,17 @@
-"""Host helpers, copied from ``ssrs_tpu/utils.py``: only those the port
-uses: the directory helper, and the solar and seasonal helpers (sunrise
-and sunset by NOAA's solar-position algorithm, the local UTC offset from a
-bundled CONUS timezone table and the stdlib ``zoneinfo``, and the seeded
-sampler of seasonal datetimes). numpy and the standard library only."""
+"""Host helpers, copied from ``ssrs_tpu/utils.py``: the solar and seasonal
+helpers (sunrise and sunset by NOAA's solar-position algorithm, the local
+UTC offset from a bundled CONUS timezone table and the stdlib
+``zoneinfo``, and the seeded sampler of seasonal datetimes), the GIS axis
+and extent helpers of the figures, and the filesystem and printing
+helpers. numpy and the standard library only; matplotlib inside
+``create_gis_axis``."""
 
 from __future__ import annotations
 
 import errno
 import math
 import os
+import shutil
 from datetime import date, datetime, time, timedelta
 from typing import List, Tuple
 
@@ -186,7 +189,30 @@ def get_seasonal_datetimes_list(years: List[int],
     return list(chosen)
 
 
-# ---- filesystem -------------------------------------------------------------
+# ---- figures --------------------------------------------------------------
+
+def create_gis_axis(cur_fig, cur_ax, cur_cm=None, km_bar: float = 10.):
+    """GIS axis styling — the reference's public helper name
+    (ssrs/utils.py:32-71); implementation lives in
+    :func:`ssrs_tpu_torch.figstyle.decorate_gis_axes` (scale bar, north
+    arrow, optional colorbar, legend, equal aspect). Returns
+    ``(colorbar, legend)``, either possibly None."""
+    from .figstyle import decorate_gis_axes
+    return decorate_gis_axes(cur_fig, cur_ax, cur_cm, km_bar)
+
+
+# ---- bounds & filesystem ---------------------------------------------------
+
+def get_extent_from_bounds(bounds, from_origin: bool = False,
+                           in_km: bool = False):
+    """Matplotlib extent from bounds (ssrs/utils.py:74-85)."""
+    extent = (bounds[0], bounds[2], bounds[1], bounds[3])
+    if from_origin:
+        extent = (0., extent[1] - bounds[0], 0., extent[3] - extent[2])
+    if in_km:
+        extent = [v / 1000. for v in extent]
+    return extent
+
 
 def makedir_if_not_exists(dirname: str) -> None:
     try:
@@ -194,3 +220,38 @@ def makedir_if_not_exists(dirname: str) -> None:
     except OSError as exc:
         if exc.errno != errno.EEXIST:
             raise
+
+
+def remove_all_dirs_in_this_dir(dname: str) -> None:
+    if os.path.isdir(dname):
+        for entry in os.scandir(dname):
+            if entry.is_dir():
+                shutil.rmtree(entry.path)
+
+
+def empty_this_directory(dirname: str) -> None:
+    for fname in os.listdir(dirname):
+        os.remove(os.path.join(dirname, fname))
+
+
+def pretty_str(label, arr) -> str:
+    """Pretty-print an array assignment (ssrs/utils.py:126-167)."""
+    def is_col(a):
+        try:
+            return a.shape[0] > 1 and a.shape[1] == 1
+        except (AttributeError, IndexError):
+            return False
+
+    label = '' if label is None else label
+    if label:
+        label += ' = '
+    if is_col(arr):
+        return label + str(arr.T).replace('\n', '') + '.T'
+    rows = str(arr).split('\n')
+    if not rows:
+        return ''
+    out = label + rows[0]
+    pad = ' ' * len(label)
+    for line in rows[1:]:
+        out += '\n' + pad + line
+    return out
