@@ -74,6 +74,23 @@ region's presence map again from its ``.pkl`` (one launch of the count
 kernel), and the figures: drawn where matplotlib imports, else ``run``
 without ``--no-plots`` must raise ``ImportError`` before any output.
 
+Several devices, last: a mesh of four entries, every visible card cycled
+(four times the one card on a machine with one; a line says how many
+distinct cards). The main run's 100,000 tracks again, counts only, through
+``Simulator(device=mesh, mesh_devices=4)`` on the cached potential: its
+counts are the sum of the sharded driver's shards, and each shard is
+bit-identical to the single-device driver on its slice, with as many
+chunk launches and flushes; one shard's first 512-step chunk, its flush
+and two of its steps (from its start and after the chunk) against the
+plain versions; ``simulate_presence_sharded`` (the per-step kernel) with
+the main run's mass checks; the direction sweep
+again from its cache with its cases over two entries (the sweep's counts
+bit for bit); the row-sharded orograph (bitwise the single-device one);
+the row-sharded refined solve of the main field (rrel, interior residual,
+range, boundary, a bitwise re-solve; its seconds and V-cycles beside the
+single-device solve's) and of the hard field (within 0.05 of direct), no
+field block moving between shards.
+
 Every phase prints one line; any failure exits non-zero. The last three
 lines are a JSON object with the solver's, the track engine's, the
 count's and the multi-case paths' numbers, one with the kernels' numbers
@@ -91,6 +108,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -222,6 +240,11 @@ CLI_RECOUNT_REGION = 'appalachian'
 # sines and cosines that differ by ulps (the tolerance of the tests'
 # fields against the JAX package's)
 ORO_RTOL, ORO_ATOL = 1e-5, 1e-4
+# the sharded phase: a mesh of SHARDS entries, every visible card cycled
+# (four times cuda:0 on one card); the direction sweep's rerun spreads its
+# cases over the first SWEEP_MESH of them
+SHARDS = 4
+SWEEP_MESH = 2
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device-memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -2815,6 +2838,337 @@ def phase_cli(torch, device_name, out, main_saved):
                    'matplotlib': have_mpl}
 
 
+def _sharded_solve(torch, cond, dirn, mesh, tol=1e-7):
+    """(potential on the host, rrel, stats, wall seconds) of one row-sharded
+    refined solve over ``mesh``."""
+    from ssrs_tpu_torch.parallel import solve_potential_refined_sharded
+    from ssrs_tpu_torch.potential.boundary import boundary_masks
+    bmask, bvals = boundary_masks(dirn, tuple(cond.shape))
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pot, rrel = solve_potential_refined_sharded(cond, bmask, bvals,
+                                                mesh=mesh, tol=tol,
+                                                stats=stats)
+    pot = pot.gather().cpu().numpy()
+    return pot, rrel, stats, time.perf_counter() - t0
+
+
+def _check_moves(label, stats, shape):
+    """No move between shards but the scatter of an input on mesh[0] into
+    its blocks carries a sixteenth of a float32 field or more: halo rows,
+    partials, scalars and the gathered coarse levels only."""
+    field = shape[0] * shape[1] * 4
+    big = {k: v['largest'] for k, v in stats['transfers'].items()
+           if k != 'scatter' and v['largest'] >= field // 16}
+    if big:
+        fail(f'{label}: moves between shards of a field block: {big}')
+
+
+def phase_sharded(torch, device_name, out, sim, solver):
+    """The multi-device layer at the main run's width, over a mesh of
+    SHARDS entries (every visible card, cycled): the counts-only run of
+    100,000 tracks through ``Simulator(device=mesh, mesh_devices=SHARDS)``
+    (the potential from the main run's cache), its shards against the
+    single-device driver on their slices, one shard's chunk, flush and
+    two steps against the plain versions, ``simulate_presence_sharded``
+    (the per-step kernel), the direction sweep again from its cache with its
+    cases spread over SWEEP_MESH entries, the row-sharded orograph, and
+    the row-sharded solve of the main field and of the hard field.
+    Returns the launches of the three driven runs, each counted from 0
+    just before it, summed, and the phase's numbers."""
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.agents.fused_chunk import (fused_chunk,
+                                                   fused_chunk_plain)
+    from ssrs_tpu_torch.agents.fused_step import (alive_and_push, fused_step,
+                                                  fused_step_plain)
+    from ssrs_tpu_torch.agents.presence_hist import (presence_flush,
+                                                     presence_flush_plain)
+    from ssrs_tpu_torch.agents.simulate import (init_state,
+                                                simulate_presence_compacting)
+    from ssrs_tpu_torch.core.rng import case_seed, fold_in
+    from ssrs_tpu_torch.fields.updraft import orographic_updraft_from_dem
+    from ssrs_tpu_torch.parallel import (orographic_updraft_from_dem_sharded,
+                                         pad_to_multiple,
+                                         simulate_presence_sharded)
+    from ssrs_tpu_torch.parallel.mesh import shard_maps_compacting
+    from ssrs_tpu_torch.potential import solve_potential_direct
+    from ssrs_tpu_torch.potential.boundary import boundary_masks
+    from ssrs_tpu_torch.potential.direct import interior_residual
+    from ssrs_tpu_torch.potential.fields import conductivity_hard
+    cards = torch.cuda.device_count()
+    mesh = [torch.device('cuda', i % cards) for i in range(SHARDS)]
+    distinct = len(set(mesh))
+    label = f'sharded ({SHARDS} shards on {distinct} distinct card(s))'
+    case = sim.case_ids[0]
+    ident = sim._get_id_string(case, 0)
+    params, dirp, restr, table, starts = _run_table(torch, sim)
+    seed = case_seed(sim.sim_seed, case, 0, 'tracks')
+    burnin = sim.grid.burnin_length()
+    total = dict.fromkeys(_read_counts(), 0)
+
+    def add(launched):
+        for key, n in launched.items():
+            total[key] += n
+
+    # the counts-only run on the mesh, through the Simulator
+    pot_path = os.path.join(sim.mode_data_dir, f'{ident}_potential.npy')
+    root = os.path.join(out, 'sharded')
+    data = os.path.join(root, MAIN_CONFIG['run_name'], 'data', 'uniform')
+    os.makedirs(data)
+    shutil.copy(pot_path, data)
+    cfg = Config(out_dir=root, **MAIN_CONFIG, mesh_devices=SHARDS)
+    msim = Simulator(cfg, device=mesh)
+    _reset_counts()
+    msim.simulate_tracks()
+    run = _read_counts()
+    add(run)
+    rec = {r['phase']: r for r in msim.timer.records}
+    if rec['potential']['solver'] != 'cache' or \
+            rec['tracks']['devices'] != SHARDS or rec['tracks']['recorded']:
+        fail(f'{label}: records {rec["potential"]}, {rec["tracks"]}')
+    counts = np.load(os.path.join(data, f'{ident}_counts.npy'))
+    mass = _check_case_counts(f'{label} run', counts, cfg.track_count,
+                              burnin)
+
+    # its shards: the single-device driver on each slice, bit for bit, with
+    # as many chunk launches and flushes
+    updraft = sim.load_updrafts(case)[0]
+    potential = torch.from_numpy(np.load(pot_path)).to(mesh[0])
+    maps, steps = shard_maps_compacting(params, starts, seed, updraft,
+                                        potential, mesh)
+    if not np.array_equal(maps.sum(0, dtype=torch.int32).cpu().numpy(),
+                          counts) or rec['tracks']['steps'] != steps.max():
+        fail(f'{label}: the Simulator\'s counts are not the sum of the '
+             'sharded driver\'s shards')
+    padded, valid = pad_to_multiple(starts, SHARDS)
+    per = len(padded) // SHARDS
+    single = dict.fromkeys(run, 0)
+    for i, dev in enumerate(mesh):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(fold_in(seed, i))
+        _reset_counts()
+        got, got_steps = simulate_presence_compacting(
+            params, padded[i * per:(i + 1) * per], gen, updraft=updraft,
+            potential=potential, valid=valid[i * per:(i + 1) * per])
+        for key, n in _read_counts().items():
+            single[key] += n
+        if got_steps != steps[i] or not torch.equal(got.to(mesh[0]),
+                                                    maps[i]):
+            fail(f'{label}: shard {i} differs from the single-device '
+                 'driver on its slice')
+    _check_chunk_launches(f'{label} run', run, [int(s) for s in steps])
+    _check_flush_launches(f'{label} run', run)
+    if any(run[k] != single[k] for k in ('fused_chunk', 'fused_chunk_steps',
+                                         'flushes', 'presence_flush')):
+        fail(f'{label}: launches {run} against the single-device runs\' '
+             f'{single}')
+    say(f'{label} run, {cfg.track_count} tracks through the Simulator on '
+        f'{[str(d) for d in mesh]}: tracks phase '
+        f'{rec["tracks"]["seconds"]:.3f} s, shard steps '
+        f'{[int(s) for s in steps]}, '
+        f'{run["fused_chunk"]} chunk launches, {run["flushes"]} flushes '
+        f'through {run["presence_flush"]} flush launches, mass {mass}; every '
+        'shard bit-identical to simulate_presence_compacting on its slice '
+        'with the same launches and flushes, on ' + device_name)
+
+    # one shard's first chunk and its flush against the plain versions
+    dev = mesh[1 % SHARDS]
+    st0 = init_state(params, padded[per:2 * per], valid=valid[per:2 * per],
+                     device=dev)
+    u = torch.rand((CHUNK_T, per), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(2033))
+    chunked = []
+    for fn in (fused_chunk, fused_chunk_plain):
+        st = _fresh(torch, st0)
+        fn(table.to(dev), restr.to(dev), dirp.to(dev), st.pos_r, st.pos_c,
+           st.mem, st.alive, st.palive, u, st.presence, s0=0, nu=params.nu,
+           memory_k=params.memory_k, burnin=params.burnin,
+           nsteps=params.nsteps)
+        chunked.append(st)
+    diff = _state_diff(torch, *chunked)
+    chunk_err = int((chunked[0].presence - chunked[1].presence).abs().max())
+    if diff or chunk_err:
+        fail(f'{label}: shard 1\'s chunk differs from the plain version in '
+             f'{diff}')
+    st = chunked[0]
+    flushed = [st.presence.clone(), st.presence.clone()]
+    flags = [presence_flush(st.pos_r, st.pos_c, st.palive, flushed[0]),
+             presence_flush_plain(st.pos_r, st.pos_c, st.palive, flushed[1])]
+    flush_err = int((flushed[0].long() - flushed[1].long()).abs().max())
+    if flush_err or not torch.equal(*flags) or (
+            bool(st.palive.any()) and torch.equal(flushed[0], st.presence)):
+        fail(f'{label}: shard 1\'s flush differs from the plain version')
+    say(f'{label}: shard 1 on {dev}, {per} agents: one {CHUNK_T}-step chunk '
+        f'({_live_steps(st0, st)} live agent-steps) and its flush '
+        f'({int(st.palive.sum())} pending) exactly equal to the plain '
+        'versions')
+
+    # the same shard's per-step kernel (simulate_presence_sharded's): one
+    # step from its initial state and one from its state after the chunk,
+    # the run's table, against the plain step on the same uniforms
+    step_err = 0
+    args = (table.to(dev), restr.to(dev), dirp.to(dev))
+    ugen = torch.Generator(device=dev).manual_seed(2034)
+    for what, st, t in (('its initial state', st0, 0),
+                        (f'step {CHUNK_T}', chunked[1], CHUNK_T)):
+        alive, pr, pc = alive_and_push(t, st.alive, st.pos_r, st.pos_c, NROW,
+                                       NCOL, params.burnin, params.nsteps)
+        u1 = torch.rand(per, device=dev, generator=ugen)
+        outs = []
+        for fn in (fused_step, fused_step_plain):
+            pres = st.presence.clone()
+            outs.append((*fn(*args, pr, pc, st.pos_r, st.pos_c, alive,
+                             st.palive, st.mem, u1, pres, nu=params.nu,
+                             memory_k=params.memory_k), pres))
+        for name, x, y in zip(('new_r', 'new_c', 'new_mem', 'presence'),
+                              *outs):
+            err = int((x.long() - y.long()).abs().max())
+            step_err = max(step_err, err)
+            if err:
+                fail(f'{label}: shard 1\'s step from {what}: {name} differs '
+                     f'from the plain version (max abs err {err})')
+        say(f'{label}: shard 1\'s per-step kernel from {what} '
+            f'({int(alive.sum())} alive, {int(st.palive.sum())} counted) '
+            'exactly equal to the plain step')
+
+    # the non-compacting sharded driver: the per-step kernel
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_map, plain_steps = simulate_presence_sharded(
+        params, starts, seed, updraft=updraft, potential=potential,
+        mesh=mesh)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    stepped = _read_counts()
+    add(stepped)
+    plain_mass = _check_case_counts(f'{label} simulate_presence_sharded',
+                                    plain_map.cpu().numpy(),
+                                    cfg.track_count, burnin)
+    if not plain_steps <= stepped['fused_step'] <= SHARDS * plain_steps or \
+            stepped['fused_chunk'] or stepped['flushes'] != SHARDS or \
+            stepped['presence_flush'] != SHARDS:
+        fail(f'{label}: simulate_presence_sharded launched {stepped} for '
+             f'{plain_steps} steps')
+    say(f'{label}: simulate_presence_sharded, {cfg.track_count} tracks: '
+        f'{plain_steps} steps, {stepped["fused_step"]} per-step launches, '
+        f'{stepped["presence_flush"]} flush launches, mass {plain_mass}, '
+        f'{plain_s:.3f} s')
+
+    # the direction sweep again from its cache, its cases over SWEEP_MESH
+    # entries of the mesh
+    scfg = Config(out_dir=out, **{**MAIN_CONFIG, 'run_name': 'wy_sweep'},
+                  mesh_devices=SWEEP_MESH)
+    ssim = Simulator(scfg, device=mesh)
+    cases = [f's10d{int(d)}' for d in SWEEP_DIRNS]
+
+    def sweep_counts():
+        return [np.load(os.path.join(
+            ssim.mode_data_dir, f'{ssim._get_id_string(c, 0)}_counts.npy'))
+            for c in cases]
+
+    before = sweep_counts()
+    _reset_counts()
+    ssim.simulate_direction_sweep(SWEEP_DIRNS)
+    swept = _read_counts()
+    add(swept)
+    hits = sum(r['solver'] == 'cache' for r in ssim.timer.records
+               if r['phase'] == 'potential')
+    brec = [r for r in ssim.timer.records
+            if r['phase'] == 'batched_tracks'][0]
+    _check_batched_launches(f'{label} sweep', swept, brec)
+    if hits != len(cases) or brec['devices'] != SWEEP_MESH or any(
+            not np.array_equal(a, b) for a, b in zip(sweep_counts(), before)):
+        fail(f'{label} sweep: {hits} cache hits, record {brec}, or counts '
+             'that differ from the sweep\'s')
+    say(f'{label} sweep: {len(cases)} directions from the cache with the '
+        f'cases over {SWEEP_MESH} mesh entries: counts bit for bit the '
+        f'sweep\'s, batched track phase {brec["seconds"]:.3f} s, '
+        f'{swept["fused_chunk"]} chunk launches, {swept["flushes"]} flushes')
+
+    # the row-sharded orograph
+    z = sim.get_terrain_elevation().astype(np.float32)
+    wind = [torch.tensor(float(v), device=mesh[0]) for v in
+            (sim.uniform_windspeed, sim.uniform_winddirn)]
+    want = orographic_updraft_from_dem(torch.from_numpy(z).to(mesh[0]),
+                                       sim.resolution, *wind)
+    oro = orographic_updraft_from_dem_sharded(
+        z, sim.resolution, sim.uniform_windspeed, sim.uniform_winddirn,
+        mesh=mesh).gather()
+    if not torch.equal(oro, want):
+        fail(f'{label}: the row-sharded orograph differs from the '
+             'single-device one')
+    say(f'{label}: the row-sharded orograph of the {NROW}x{NCOL} DEM is '
+        'bitwise the single-device one')
+
+    # the row-sharded solve of the main field: the main solve's invariants
+    dirn = float(sim.track_direction)
+    cond = updraft
+    pot_main = np.load(pot_path)
+    solves = [_sharded_solve(torch, cond, dirn, mesh, sim.potential_tol)
+              for _ in range(2)]
+    pot, rrel, stats, secs = solves[0]
+    bmask, bvals = boundary_masks(dirn, pot.shape)
+    resid = interior_residual(pot, cond.cpu().numpy(), dirn)
+    if not (rrel < RREL_MAX and resid <= INTERIOR_RESID_MAX) or \
+            pot.min() < -RANGE_SLACK or pot.max() > 1000. + RANGE_SLACK or \
+            not np.array_equal(pot[bmask], bvals[bmask]):
+        fail(f'{label}: main-field solve rrel {rrel:.3e}, interior residual '
+             f'{resid:.3e}, range {pot.min()}..{pot.max()} or boundary off')
+    if not np.array_equal(solves[1][0], pot) or solves[1][1] != rrel:
+        fail(f'{label}: two sharded solves of the main field differ')
+    _check_moves(f'{label} main-field solve', stats, pot.shape)
+    gap = float(np.abs(pot.astype(np.float64) - pot_main).max())
+    say(f'{label} solve, main field {NROW}x{NCOL}: rrel {rrel:.3e}, '
+        f'{stats["passes"]} passes, {stats["vcycles"]} V-cycles '
+        f'({stats["sharded_levels"]} levels sharded), interior residual '
+        f'{resid:.3e}, bitwise equal re-solve; {secs:.3f} / '
+        f'{solves[1][3]:.3f} s against the single-device solve\'s warm '
+        f'{solver["warm_s"][0]:.3f} / {solver["warm_s"][1]:.3f} s and '
+        f'{solver["vcycles"]} V-cycles; |sharded - single| max {gap:.4g} '
+        f'(not gated: the near-null mode); moves between shards '
+        f'{stats["transfers"]}')
+
+    # the hard field against the direct solve
+    hard = conductivity_hard(HARD_SHAPE, seed=1)
+    h_pot, h_rrel, h_stats, h_secs = _sharded_solve(
+        torch, torch.from_numpy(hard).to(mesh[0]), 0., mesh)
+    h_err = float(np.abs(h_pot.astype(np.float64) - solve_potential_direct(
+        hard, 0.)).max())
+    if not (h_err < HARD_ERR_MAX and h_rrel < RREL_MAX):
+        fail(f'{label}: hard field max err {h_err:.4g}, rrel {h_rrel:.3e}')
+    _check_moves(f'{label} hard-field solve', h_stats, HARD_SHAPE)
+    single_hard = solver['hard_460']
+    say(f'{label} solve, hard field {HARD_SHAPE[0]}x{HARD_SHAPE[1]}: max err '
+        f'{h_err:.4g} < {HARD_ERR_MAX} against direct, rrel {h_rrel:.3e}, '
+        f'{h_stats["vcycles"]} V-cycles in {h_secs:.3f} s against the '
+        f'single-device solve\'s {single_hard["vcycles"]} in '
+        f'{single_hard["seconds"]:.3f} s')
+    return total, {
+        'shards': SHARDS, 'distinct_cards': distinct,
+        'mesh': [str(d) for d in mesh],
+        'run': {'tracks_s': rec['tracks']['seconds'],
+                'shard_steps': [int(s) for s in steps],
+                'chunk_launches': run['fused_chunk'],
+                'flushes': run['flushes']},
+        'chunk_max_abs_err': chunk_err, 'flush_max_abs_err': flush_err,
+        'step_max_abs_err': step_err,
+        'plain': {'seconds': plain_s, 'steps': plain_steps,
+                  'fused_step': stepped['fused_step']},
+        'sweep': {'devices': SWEEP_MESH,
+                  'batched_tracks_s': brec['seconds'],
+                  'chunk_launches': swept['fused_chunk']},
+        'solve_main': {'rrel': rrel, 'passes': stats['passes'],
+                       'vcycles': stats['vcycles'], 'seconds': secs,
+                       'resolve_seconds': solves[1][3],
+                       'interior_residual': resid,
+                       'max_abs_vs_single': gap,
+                       'transfers': stats['transfers']},
+        'solve_hard': {'max_abs_err': h_err, 'rrel': h_rrel,
+                       'vcycles': h_stats['vcycles'], 'seconds': h_secs}}
+
+
 def main() -> int:
     try:
         import torch
@@ -2851,6 +3205,7 @@ def main() -> int:
                                                 wtk_reads)
         snapshot_run, snapshot = phase_snapshot(torch, name, out, template)
         cli_run, cli = phase_cli(torch, name, out, main_saved)
+        sharded_run, sharded = phase_sharded(torch, name, out, sim, solver)
     phase_small(torch)
     # the port took in no JAX, and no pandas or requests either: the only
     # ``requests`` is the script's own, which refuses
@@ -2873,7 +3228,8 @@ def main() -> int:
         # its path: the per-step driver simulate_presence
         'path': 'simulate_presence',
         'launches': engine['per_step_path_launches']['fused_step'],
-        'max_abs_err': max(max_err, no_table['max_abs_err']),
+        'max_abs_err': max(max_err, no_table['max_abs_err'],
+                           sharded['step_max_abs_err']),
         'ms': bf16['ms'],
         'plain_ms': bf16['plain_ms'], 'bound_ms': bf16['bound_ms'],
         'bound_by': bf16['bound_by'], 'library_ms': None,
@@ -2886,7 +3242,7 @@ def main() -> int:
         'path': 'uniform run (simulate_presence_compacting)',
         'launches': main_run['fused_chunk'],
         'max_abs_err': max(chunk_err, no_table['max_abs_err'],
-                           cli_chunk_err),
+                           cli_chunk_err, sharded['chunk_max_abs_err']),
         'ms': engine['chunk_ms'],
         'plain_ms': engine['plain_ms'], 'bound_ms': engine['bound_ms'],
         'bound_by': engine['bound_by'], 'library_ms': None,
@@ -2904,7 +3260,8 @@ def main() -> int:
         'path': 'uniform run (flush_pending)',
         'launches': main_run['presence_flush'],
         'max_abs_err': max(flush_real['max_abs_err'],
-                           flush_syn['max_abs_err']),
+                           flush_syn['max_abs_err'],
+                           sharded['flush_max_abs_err']),
         'ms': flush_real['ms'], 'plain_ms': flush_real['plain_ms'],
         'bound_ms': flush_real['bound_ms'],
         'bound_by': flush_real['bound_by'],
@@ -2956,6 +3313,13 @@ def main() -> int:
             k[key] = counted[k['name']]
             if k[key] < 1 and k['name'] in ('fused_chunk', 'presence_flush'):
                 fail(f'{k["name"]}: not launched on its path ({key})')
+        # the sharded phase's three driven runs, each counted from 0 just
+        # before it: the Simulator on the mesh, simulate_presence_sharded,
+        # the sweep's rerun with its cases over the mesh
+        k['launches_sharded_run'] = sharded_run[k['name']]
+        if k['launches_sharded_run'] < 1 and k['name'] in (
+                'fused_chunk', 'presence_flush', 'fused_step'):
+            fail(f'{k["name"]}: not launched on the sharded paths')
         if k['name'] == 'presence_histogram_batch' and \
                 k['launches_snapshot_run'] < 1:
             fail('presence_histogram_batch: not launched by the snapshot '
@@ -2975,7 +3339,8 @@ def main() -> int:
                                         'count_sweep')}
     cases = {'no_table': no_table, 'thermals': thermals, 'sweep': sweep,
              'thermals_run': thermals_path, 'drw': drw,
-             'seasonal': seasonal, 'snapshot': snapshot, 'cli': cli}
+             'seasonal': seasonal, 'snapshot': snapshot, 'cli': cli,
+             'sharded': sharded}
     print(json.dumps({'solver': solver, 'engine': engine, 'count': count,
                       'cases': cases}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

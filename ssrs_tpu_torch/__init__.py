@@ -12,7 +12,8 @@ through the multi-case driver; recorded trajectories (``_tracks.pkl``)
 up to ``track_pkl_budget`` tracks; the terrain, turbine and WindToolKit
 clients (``data/``) and turbine presence scores; the reference's figures
 (``plotting.py``) and the command line, ``python -m ssrs_tpu_torch run
-CONFIG.json`` (``__main__.py``). README.md and ROADMAP.md say what is
+CONFIG.json`` (``__main__.py``); on several devices, agents sharded over
+a mesh and fields by rows (``parallel/``). README.md and ROADMAP.md say what is
 ported and what is not. The package imports torch, numpy and scipy,
 never JAX or pandas; ``requests``, ``h5py`` and ``h5pyd`` only where a
 data source that needs them is used, and matplotlib only where a figure

@@ -426,21 +426,36 @@ def _prologue(params: TrackParams, start_rc, generator: torch.Generator,
     neither a table nor an updraft the run has no table: the directed
     random walk."""
     device = generator.device
-    if dirp is None:
-        dirp = torch.from_numpy(directional_probs(params.move_dirn))
-    dirp = torch.as_tensor(dirp).to(device=device, dtype=torch.float32)
+    dirp = _prior(params, dirp, device)
     restr = torch.from_numpy(restriction_table()).to(device)
-    if base_flat is None and updraft is not None:
-        updraft = torch.as_tensor(updraft, dtype=torch.float32,
-                                  device=device)
-        if potential is not None:
-            potential = torch.as_tensor(potential, dtype=torch.float32,
-                                        device=device)
-        base_flat = prepared_weights(updraft, potential, dirp,
-                                     params.weight_dtype)
+    if base_flat is None:
+        base_flat = field_table(params, updraft, potential, device, dirp)
     state = init_state(params, start_rc, valid=valid, device=device)
     make = make_chunk_fn if chunked else make_step_fn
     return state, make(params, base_flat, dirp, restr)
+
+
+def _prior(params: TrackParams, dirp, device) -> torch.Tensor:
+    """The directional prior on ``device`` in float32: ``dirp``, or the one
+    of ``params.move_dirn``."""
+    if dirp is None:
+        dirp = torch.from_numpy(directional_probs(params.move_dirn))
+    return torch.as_tensor(dirp).to(device=device, dtype=torch.float32)
+
+
+def field_table(params: TrackParams, updraft, potential, device,
+                dirp=None) -> Optional[torch.Tensor]:
+    """The drivers' weight table of ``updraft`` and ``potential`` (tensors
+    or numpy) on ``device``, as :func:`simulate_presence_compacting`
+    builds it; None without an updraft (the directed random walk)."""
+    if updraft is None:
+        return None
+    dirp = _prior(params, dirp, device)
+    updraft = torch.as_tensor(updraft, dtype=torch.float32, device=device)
+    if potential is not None:
+        potential = torch.as_tensor(potential, dtype=torch.float32,
+                                    device=device)
+    return prepared_weights(updraft, potential, dirp, params.weight_dtype)
 
 
 def simulate_presence(params: TrackParams, start_rc,
@@ -600,7 +615,8 @@ def simulate_presence_cases_compacting(params: TrackParams, base_tables,
                                        chunk: int = 512,
                                        min_bucket: int = 1024,
                                        tail_bucket=0,
-                                       valid=None):
+                                       valid=None,
+                                       devices=None):
     """Multi-case presence simulation: the seasonal and sweep production
     path. Every case runs the compacting pipeline of
     :func:`simulate_presence_compacting` (chunk kernel, dead-agent
@@ -622,30 +638,47 @@ def simulate_presence_cases_compacting(params: TrackParams, base_tables,
         may be None (no table: the directed random walk)
     start_rc : (N, 2) shared starts, (C, N, 2) per-case starts, or a list
         of C (N, 2) arrays; every case's state owns copies of them
-    generators : C ``torch.Generator``s on one device, where the run
-        takes place
+    generators : C ``torch.Generator``s, where the cases run: all on one
+        device, or case i's on ``devices[i % len(devices)]``
     dirps : optional (C, 9) per-case directional priors; None derives the
         shared prior from ``params.move_dirn``
     tail_bucket : as in :func:`simulate_presence_compacting`
+    valid : optional (N,) flags of real agents, shared, or a list of C
+        per-case flags
+    devices : optional list of devices; case i runs on
+        ``devices[i % len(devices)]`` (the list may repeat a device). Case
+        parallelism with no traffic between devices but the final
+        gather: each case's table and prior are copied to its device
+        (a table once per device), its state lives there, and its map is
+        gathered onto ``devices[0]``. Device placement changes no bit.
 
     What bounds C is device memory: each case holds its table, its state
     and its map for the whole run, and a chunk's uniforms while it is in
     flight, up to ``UNIFORM_BLOCK`` float32 values (256 MiB; 205 MB at
-    100,000 agents and 512 steps). All cases run on the caller's stream,
-    where the allocator hands one such block from case to case, so a round
-    may hold fewer than C blocks, and C x 256 MiB at most.
+    100,000 agents and 512 steps). All cases of a device run on its
+    current stream, where the allocator hands one such block from case to
+    case, so a round may hold fewer than C blocks a device, and C x 256
+    MiB at most.
 
-    Returns (presence int32 (C, nrow, ncol) on the device, steps int32
-    (C,) numpy).
+    Returns (presence int32 (C, nrow, ncol) on the device, or on
+    ``devices[0]``, steps int32 (C,) numpy).
     """
     n_cases = len(base_tables)
     starts = _case_starts(start_rc, n_cases)
+    valids = list(valid) if isinstance(valid, (list, tuple)) \
+        else [valid] * n_cases
+    if len(valids) != n_cases:
+        raise ValueError(f'per-case valid list has {len(valids)} entries '
+                         f'for {n_cases} cases')
+    tables = list(base_tables)
+    if devices:
+        tables = _place_cases(tables, generators, devices)
     floor = max(min_bucket, _norm_tail_bucket(tail_bucket, min_bucket))
     states, advances = {}, {}
     for i in range(n_cases):
         states[i], advances[i] = _prologue(
-            params, starts[i], generators[i], None, None, valid,
-            base_tables[i], None if dirps is None else dirps[i])
+            params, starts[i], generators[i], None, None, valids[i],
+            tables[i], None if dirps is None else dirps[i])
     active = list(range(n_cases))
     while active:
         # enqueue: one chunk and its alive count for every active case;
@@ -667,8 +700,47 @@ def simulate_presence_cases_compacting(params: TrackParams, base_tables,
                 states[i] = _shrink(states[i], n_alive, floor, min_bucket)
                 still.append(i)
         active = still
-    return (torch.stack([states[i].presence for i in range(n_cases)]),
+    # case 0 runs on devices[0]
+    home = states[0].presence.device
+    return (torch.stack([states[i].presence.to(home)
+                         for i in range(n_cases)]),
             np.array([states[i].step for i in range(n_cases)], np.int32))
+
+
+def _same_device(a, b) -> bool:
+    """Whether two devices name the same one (``'cuda'`` is the current
+    card)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != 'cuda':
+        return True
+    return (a.index if a.index is not None else torch.cuda.current_device()) \
+        == (b.index if b.index is not None else torch.cuda.current_device())
+
+
+def _place_cases(tables, generators, devices):
+    """The cases driver's ``devices=`` placement: case i on
+    ``devices[i % len(devices)]``, where its generator must already be
+    (a draw onto another device raises, and moving the draws would hide
+    that). Returns the tables on their cases' devices, each distinct
+    table copied once to each device it needs."""
+    moved = {}
+    out = []
+    for i, table in enumerate(tables):
+        dev = torch.device(devices[i % len(devices)])
+        if not _same_device(generators[i].device, dev):
+            raise ValueError(
+                f'case {i} runs on {dev} (devices[{i} % {len(devices)}]), '
+                f'but its generator lives on {generators[i].device}; make '
+                "each case's generator on its case's device")
+        if table is not None:
+            key = (id(table), str(dev))
+            if key not in moved:
+                moved[key] = table.to(dev)
+            table = moved[key]
+        out.append(table)
+    return out
 
 
 class RecordedRun(NamedTuple):

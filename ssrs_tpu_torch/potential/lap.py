@@ -30,6 +30,13 @@ as in JAX. Per-island sums run in float64 (the deflation divides by
 ``z^T A z ~ 1e-8``), in a fixed order (see :func:`island_sum`), so two
 solves of one field on one device give the same bits.
 
+The cycle, the GCR and the refinement take a field as a tensor on one
+device or as row blocks over several (``parallel/fields.py``'s
+``RowBlocks``, whose arithmetic runs block by block): one code for both.
+The few operations that differ go through :func:`_each`, :func:`_total`,
+:func:`_norm`, :func:`_spread`, :func:`_apply_lap` and
+:func:`island_sum`, which take the plain torch call on a tensor.
+
 What the TPU needed and the card does not, and is left out: the tiled
 label dictionary (XLA lowers ``segment_sum`` to a serial scatter on the
 TPU), the parity-mask ``reduce_window`` and selector-matmul transfers
@@ -64,6 +71,31 @@ __all__ = ['solve_potential_refined', 'weight_planes', 'symmetrize_planes',
            'vcycle']
 
 
+# ---- fields: one tensor, or row blocks ------------------------------------------
+
+
+def _each(fn, x, *others):
+    """``fn`` of a field (``others``: fields alike): a tensor's own call,
+    or block by block."""
+    return fn(x, *others) if torch.is_tensor(x) else x.map(fn, *others)
+
+
+def _total(x) -> torch.Tensor:
+    """The sum of a field's cells (row blocks: their partials, in block
+    order, on the first device)."""
+    return torch.sum(x) if torch.is_tensor(x) else x.total()
+
+
+def _norm(x) -> torch.Tensor:
+    """The 2-norm of a field (row blocks: of their norms)."""
+    return torch.linalg.vector_norm(x) if torch.is_tensor(x) else x.norm()
+
+
+def _spread(c: torch.Tensor, labels):
+    """``c[labels]``: a per-island vector spread over the cells."""
+    return c[labels] if torch.is_tensor(labels) else labels.spread(c)
+
+
 # ---- operator ---------------------------------------------------------------
 
 
@@ -88,9 +120,21 @@ def symmetrize_planes(planes: torch.Tensor) -> torch.Tensor:
 
 def _apply_lap(planes: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """A u = sum_d W_d * (u - shift_d(u)), in the dtype of ``u`` (the
-    planes must share it). One pad, eight slices, JAX's op order."""
-    nrow, ncol = u.shape
-    upad = F.pad(u, (1, 1, 1, 1))
+    planes must share it). One pad, eight slices, JAX's op order. Row
+    blocks frame each block with its neighbours' edge rows."""
+    if not torch.is_tensor(u):
+        return planes.map(_apply_lap_padded, u.padded())
+    return _apply_lap_padded(planes, F.pad(u, (1, 1, 1, 1)))
+
+
+def _apply_lap_padded(planes: torch.Tensor,
+                      upad: torch.Tensor) -> torch.Tensor:
+    """:func:`_apply_lap` of ``u`` given as ``upad``: u inside a one-cell
+    frame of its neighbours, zero beyond the grid. A row block of a
+    sharded field passes its neighbour blocks' edge rows in the frame
+    (``parallel/fields.py``)."""
+    nrow, ncol = planes.shape[-2:]
+    u = upad[1:1 + nrow, 1:1 + ncol]
     acc = torch.zeros_like(u)
     for k, (dr, dc) in enumerate(_DELTAS):
         nb = upad[dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
@@ -284,7 +328,10 @@ def island_sum(x: torch.Tensor, seg: IslandSegments) -> torch.Tensor:
     run, and the deflation divides these sums by ``z^T A z ~ 1e-8``: a
     last-bit change there moves the solve along its near-null mode. The
     offsets form also skips the length checks that would read the
-    device from the host in every call."""
+    device from the host in every call. Row blocks carry a layout a
+    block (``parallel/fields.py``), whose sums add in block order."""
+    if not isinstance(seg, IslandSegments):
+        return seg.sum(x)
     vals = x.reshape(-1)[seg.order].to(torch.float64)
     return torch.segment_reduce(vals, 'sum', offsets=seg.offsets)
 
@@ -306,6 +353,9 @@ _MIN_SIZE = 4  # coarsen until min(shape) <= _MIN_SIZE
 
 
 class LapLevel(NamedTuple):
+    """One level of the V-cycle. On a row-sharded level the four fields
+    are row blocks and ``seg`` has a layout a block
+    (``parallel/fields.py``)."""
     planes: torch.Tensor    # (8, nrow, ncol) f32 difference-form weights
     planes_x: torch.Tensor  # the same with island-internal edges zeroed
     notb: torch.Tensor      # (nrow, ncol) f32, 1 where NOT Dirichlet
@@ -316,6 +366,23 @@ class LapLevel(NamedTuple):
     @property
     def shape(self):
         return self.planes.shape[-2:]
+
+
+def _diag_inv(planes: torch.Tensor) -> torch.Tensor:
+    """1 / sum_d W_d, 0 where the sum is 0."""
+    diag = torch.sum(planes, dim=0)
+    return torch.where(diag > 0., 1. / torch.where(diag > 0., diag, 1.), 0.)
+
+
+def hierarchy_depth(shape) -> int:
+    """The number of levels :func:`build_lap_levels` builds for a grid of
+    ``shape``."""
+    m, n = shape
+    depth = 1
+    while min(m, n) > _MIN_SIZE:
+        m, n = (m + 1) // 2, (n + 1) // 2
+        depth += 1
+    return depth
 
 
 def build_lap_levels(planes: torch.Tensor, bmask: torch.Tensor,
@@ -329,9 +396,7 @@ def build_lap_levels(planes: torch.Tensor, bmask: torch.Tensor,
     lab = np.asarray(labels, np.int32)
     bm = bmask.cpu().numpy()
     while True:
-        diag = torch.sum(planes, dim=0)
-        dinv = torch.where(diag > 0., 1. / torch.where(diag > 0., diag, 1.),
-                           0.)
+        dinv = _diag_inv(planes)
         seg = zaz_inv = None
         planes_x = planes
         if num > 1:
@@ -378,7 +443,7 @@ def _deflate(level: LapLevel, u: torch.Tensor,
         return u
     r = (rhs - _apply_lap(level.planes_x, u)) * level.notb
     c = (island_sum(r, level.seg) * level.zaz_inv).to(u.dtype)
-    return u + c[level.seg.labels] * level.notb
+    return u + _spread(c, level.seg.labels) * level.notb
 
 
 def vcycle(levels: List[LapLevel], rhs: torch.Tensor,
@@ -386,7 +451,10 @@ def vcycle(levels: List[LapLevel], rhs: torch.Tensor,
     """One deflated V-cycle for A u = rhs with u clamped (0 correction)
     at Dirichlet cells. ``_KAPPA`` over-corrects the prolongated coarse
     update: the piecewise-constant Galerkin operator is ~2x too stiff
-    for smooth modes (``ssrs_tpu/potential/lap.py::vcycle``)."""
+    for smooth modes (``ssrs_tpu/potential/lap.py::vcycle``). Where a
+    row-sharded level meets one on a single device, the restricted
+    residual is gathered onto the first device and the correction cut
+    back into the blocks."""
 
     def cycle(idx: int, u: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         level = levels[idx]
@@ -397,9 +465,15 @@ def vcycle(levels: List[LapLevel], rhs: torch.Tensor,
         u = _deflate(level, u, rhs)
         r = (rhs - _apply_lap(level.planes, u)) * level.notb
         coarse = levels[idx + 1]
-        r_c = _restrict(r) * coarse.notb
-        e_c = cycle(idx + 1, torch.zeros_like(r_c), r_c)
-        pe = _prolong_pc(e_c, level.shape)
+        r_c = _each(_restrict, r)
+        blocks = None
+        if torch.is_tensor(coarse.notb) and not torch.is_tensor(r_c):
+            blocks, r_c = r_c, r_c.gather()
+        r_c = r_c * coarse.notb
+        e_c = cycle(idx + 1, _each(torch.zeros_like, r_c), r_c)
+        if blocks is not None:
+            e_c = blocks.split_like(e_c)
+        pe = _each(lambda e, f: _prolong_pc(e, f.shape), e_c, u)
         u = u + _KAPPA * pe * level.notb
         u = _deflate(level, u, rhs)
         return _smooth(level, u, rhs, _NU2)
@@ -432,12 +506,12 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
     dinv2 = top.dinv * top.dinv
 
     def sdot(a, b):
-        return torch.sum((a * dinv2) * b)
+        return _total((a * dinv2) * b)
 
     def snorm(r):
-        return torch.linalg.vector_norm(r * top.dinv)
+        return _norm(r * top.dinv)
 
-    x = torch.zeros_like(rhs)
+    x = _each(torch.zeros_like, rhs)
     hist = deque(maxlen=_GCR_K)
     rn, rn_prev = snorm(rhs), None
     it = 0
@@ -450,7 +524,7 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
         if not bool(go):
             break
         r = (rhs - _apply_lap(top.planes, x)) * notb
-        z = vcycle(levels, r, torch.zeros_like(x)) * notb
+        z = vcycle(levels, r, _each(torch.zeros_like, x)) * notb
         q = _apply_lap(top.planes, z) * notb
         for zi, qi in hist:
             beta = sdot(q, qi)
@@ -475,26 +549,38 @@ def _solve_refined_core(cond: torch.Tensor, bmask: torch.Tensor,
                         tol: float, maxcycles: int,
                         init=None) -> Tuple[torch.Tensor, float, int, int]:
     """Returns (potential f32, rrel, refinement passes, V-cycles)."""
-    num = k + 1
     planes_t = weight_planes(cond)
     # the preconditioner hierarchy on the SYMMETRIZED operator; the
-    # refinement residuals below use the TRUE planes, so the solution
-    # solves the reference's system
+    # refinement residuals use the TRUE planes, so the solution solves
+    # the reference's system
     levels = build_lap_levels(symmetrize_planes(planes_t), bmask, labels,
-                              num)
-    top = levels[0]
-    planes_t64 = planes_t.to(torch.float64)
-    notb64 = top.notb.to(torch.float64)
-    dinv64 = top.dinv.to(torch.float64)
-    u0_cold = torch.where(bmask, bvals, 500.)
-    if init is None:
-        u0 = u0_cold
-    else:
+                              k + 1)
+    u0 = None
+    if init is not None:
         # warm start, sanitized so a pathological prior solve can only
         # cost iterations, never poison this one
         init = torch.as_tensor(init, dtype=torch.float32, device=cond.device)
         u0 = torch.where(bmask, bvals,
                          torch.where(torch.isfinite(init), init, 500.))
+    return _refine(planes_t, levels, bmask, bvals, labels, k, tol,
+                   maxcycles, u0)
+
+
+def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
+            labels: np.ndarray, k: int, tol: float, maxcycles: int,
+            u0=None) -> Tuple[torch.Tensor, float, int, int]:
+    """The float64 refinement of the potential from the TRUE planes
+    ``planes_t``, each pass a GCR solve over ``levels``, from ``u0`` (by
+    default the cold start); the fields are tensors on one device or row
+    blocks. Returns (potential f32, rrel, refinement passes, V-cycles)."""
+    num = k + 1
+    top = levels[0]
+    planes_t64 = planes_t.to(torch.float64)
+    notb64 = top.notb.to(torch.float64)
+    dinv64 = top.dinv.to(torch.float64)
+    u0_cold = _each(lambda m, v: torch.where(m, v, 500.), bmask, bvals)
+    if u0 is None:
+        u0 = u0_cold
 
     def resid(u):
         return -_apply_lap(planes_t64, u) * notb64
@@ -503,7 +589,7 @@ def _solve_refined_core(cond: torch.Tensor, bmask: torch.Tensor,
     # units): the error has sensitivity ~1/D to the raw residual in
     # plateau rows (D ~ 8e-8) and island rows alike
     def scaled_norm(r):
-        return torch.linalg.vector_norm(r * dinv64)
+        return _norm(r * dinv64)
 
     # convergence is judged against the COLD start's residual, so tol and
     # rrel (and the 5e-3 fallback threshold) mean the same with a warm
@@ -513,7 +599,8 @@ def _solve_refined_core(cond: torch.Tensor, bmask: torch.Tensor,
     lev_target = 1e-4  # island level-error estimate, potential units
     if k:
         sound = torch.as_tensor(island_sound_mask(labels, num),
-                                dtype=torch.float64, device=cond.device)
+                                dtype=torch.float64,
+                                device=top.zaz_inv.device)
 
     def island_coeff(r):
         """Sound-island level-error estimates z^T r / z^T A z (zero for
@@ -538,7 +625,7 @@ def _solve_refined_core(cond: torch.Tensor, bmask: torch.Tensor,
         cycles += its
         u = u + (delta * top.notb).to(torch.float64)
         if k:
-            u = u + island_coeff(resid(u))[top.seg.labels] * notb64
+            u = u + _spread(island_coeff(resid(u)), top.seg.labels) * notb64
         r = resid(u)
         lev_t = island_coeff(r).abs().max() if k else \
             torch.zeros((), dtype=torch.float64, device=r.device)
@@ -547,8 +634,9 @@ def _solve_refined_core(cond: torch.Tensor, bmask: torch.Tensor,
         best = min(best, rn)
         passes += 1
 
-    out = torch.where(bmask, bvals.to(torch.float64), u)
-    return out.to(torch.float32), rn / scale, passes, cycles
+    out = _each(lambda m, v, a: torch.where(m, v.to(torch.float64), a).to(
+        torch.float32), bmask, bvals, u)
+    return out, rn / scale, passes, cycles
 
 
 def solve_potential_refined(conductivity, bmask, bvals, tol: float = 1e-7,

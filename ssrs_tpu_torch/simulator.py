@@ -22,6 +22,11 @@ formats (``turbines.csv``, ``wtk_locations.csv``, ``y..._wtk.csv``,
 and the reference's figures (``plotting.py``), drawn with matplotlib where
 it is installed.
 
+On several devices (``Simulator(device=[...], mesh_devices=n)``) a
+counts-only run shards its agents over the mesh (``_run_large``,
+``parallel/mesh.py``) and the multi-case driver spreads its cases over
+it; recorded runs, the fields and the solves stay on the first device.
+
 Every configuration not ported yet raises ``NotImplementedError`` naming
 its item in ROADMAP.md.
 """
@@ -40,7 +45,7 @@ import torch
 
 from .config import Config
 from .core.grid import Grid
-from .core.rng import case_generator
+from .core.rng import case_generator, case_seed
 from .core.timing import PhaseTimer, elapsed_str
 from .agents.presence import card_or_raise, compute_presence_counts
 from .agents.moves import directional_probs
@@ -54,6 +59,7 @@ from .data import (Terrain, TurbinesUSWTB, get_raster_in_projected_crs,
 from .fields import (compute_orographic_updraft,
                      compute_slope_aspect_degrees, compute_thermals,
                      get_above_threshold_speed)
+from .parallel.mesh import make_mesh, simulate_presence_sharded_compacting
 from .plotting import PlottingMixin
 from .potential.boundary import boundary_masks
 from .potential.direct import fallback_cost_estimate, solve_potential_direct
@@ -78,10 +84,6 @@ def _check_slice(cfg: Config) -> None:
         raise NotImplementedError(
             f'potential_batch={cfg.potential_batch}: the batched multi-case '
             f'solve is not ported ({todo}: not ported, on purpose)')
-    if int(cfg.mesh_devices) > 1:
-        raise NotImplementedError(
-            f'mesh_devices={cfg.mesh_devices}: the port runs on one device; '
-            f'multi-GPU waits ({todo}: multi-GPU)')
     if str(cfg.track_step_impl) not in ('auto', 'fused') or \
             str(cfg.track_presence_impl) != 'auto':
         raise NotImplementedError(
@@ -90,26 +92,48 @@ def _check_slice(cfg: Config) -> None:
             "fused step kernel); only 'auto' (or 'fused') is accepted")
 
 
+def _devices(device) -> List[torch.device]:
+    """The ``Simulator``'s devices: ``device`` as a list. ``'cuda'`` with
+    no index is every visible card (and raises without one); a sequence
+    may repeat a device."""
+    if isinstance(device, (str, torch.device)):
+        device = card_or_raise(device, 'Simulator')
+        if device.type == 'cuda' and device.index is None:
+            return [torch.device('cuda', i)
+                    for i in range(torch.cuda.device_count())]
+        return [device]
+    return [card_or_raise(d, 'Simulator') for d in device]
+
+
 class Simulator(PlottingMixin, Config):
-    """SSRS simulation orchestrator (reference: ssrs/simulator.py:34), on
-    one PyTorch device (default ``'cuda'``)."""
+    """SSRS simulation orchestrator (reference: ssrs/simulator.py:34).
+
+    ``device``: one PyTorch device or a sequence of them (default
+    ``'cuda'``: every visible card). The first is the run's device: the
+    fields, the solves and the recorded runs. The mesh (``self.mesh``) is
+    the first ``Config.mesh_devices`` of them (0: all), as
+    ``jax.devices()[:n]`` is in the JAX package: a counts-only run shards
+    its agents over it and the multi-case driver spreads its cases over
+    it when it has more than one entry. A sequence may repeat a device."""
 
     lonlat_crs = 'EPSG:4326'
     time_format = 'y%Ym%md%dh%H'
 
     def __init__(self, in_config: Config = None, device='cuda',
                  **kwargs) -> None:
-        device = card_or_raise(device, 'Simulator')
+        devices = _devices(device)
         if in_config is None:
             super().__init__(**kwargs)
         else:
             super().__init__(**asdict(in_config))
         _check_slice(self)
-        self.device = device
-        print(f'\n---- SSRS (PyTorch, {device}) in {self.sim_mode} mode')
+        self.device = devices[0]
+        self.mesh = make_mesh(int(self.mesh_devices), devices)
+        print(f'\n---- SSRS (PyTorch, {self.device}, mesh of '
+              f'{len(self.mesh)}) in {self.sim_mode} mode')
         print(f'Run name: {self.run_name}')
 
-        self.timer = PhaseTimer(device=device)
+        self.timer = PhaseTimer(device=self.device)
         self._rng = np.random.default_rng(
             self.sim_seed if self.sim_seed >= 0 else None)
         if self.sim_seed >= 0:
@@ -661,8 +685,6 @@ class Simulator(PlottingMixin, Config):
             self._simulate_batched(params, starts, work)
             return
 
-        tail = int(self.track_tail_bucket) \
-            if self.track_tail_bucket != 'auto' else 'auto'
         for case_id, real_id, updraft, pot_pair in work:
             potential = None if pot_pair is None else \
                 self._device_potential(pot_pair)
@@ -670,18 +692,21 @@ class Simulator(PlottingMixin, Config):
             print(f'{id_str}: Simulating {self.track_count} tracks..',
                   end='', flush=True)
             start_time = time.time()
-            gen = case_generator(self.sim_seed, case_id, real_id, 'tracks',
-                                 self.device)
-            with self.timer.phase('tracks', recorded=record, id=id_str):
+            # recorded runs stay on the run's device, as in the JAX package
+            with self.timer.phase('tracks', recorded=record, id=id_str,
+                                  devices=1 if record else len(self.mesh)):
                 if record:
-                    run = simulate_tracks_recorded(params, starts, gen,
-                                                   updraft=updraft,
-                                                   potential=potential)
+                    run = simulate_tracks_recorded(
+                        params, starts, case_generator(
+                            self.sim_seed, case_id, real_id, 'tracks',
+                            self.device),
+                        updraft=updraft, potential=potential)
                     presence, steps = run.presence, run.steps
                 else:
-                    presence, steps = simulate_presence_compacting(
-                        params, starts, gen, updraft=updraft,
-                        potential=potential, tail_bucket=tail)
+                    presence, steps = self._run_large(
+                        params, starts, case_seed(self.sim_seed, case_id,
+                                                  real_id, 'tracks'),
+                        updraft, potential)
                 presence = presence.cpu().numpy()
             print(f'took {elapsed_str(start_time)}', flush=True)
             # useful steps = presence mass minus the start deposits
@@ -701,6 +726,28 @@ class Simulator(PlottingMixin, Config):
                                            self.mode_data_dir)
             np.save(f'{fname}.npy', presence.astype(np.int32))
 
+    def _tail_bucket(self):
+        return int(self.track_tail_bucket) \
+            if self.track_tail_bucket != 'auto' else 'auto'
+
+    def _run_large(self, params, starts, seed: int, updraft, potential):
+        """The counts-only driver (``ssrs_tpu/simulator.py:813-833``):
+        agents sharded over the mesh when it has more than one entry
+        (``Config.mesh_devices``; 0 = every device of the ``Simulator``),
+        shard i seeded with ``fold_in(seed, i)``; dead-agent compaction in
+        both regimes. Returns (presence int32 on the run's device, steps).
+        """
+        tail = self._tail_bucket()
+        if len(self.mesh) > 1:
+            return simulate_presence_sharded_compacting(
+                params, starts, seed, updraft=updraft, potential=potential,
+                mesh=self.mesh, tail_bucket=tail)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return simulate_presence_compacting(
+            params, starts, gen, updraft=updraft, potential=potential,
+            tail_bucket=tail)
+
     def _device_potential(self, pot_pair) -> torch.Tensor:
         """The potential of a ``(host, device-or-None)`` pair on the run's
         device: the solver's own tensor, or the host array (a cached
@@ -716,11 +763,14 @@ class Simulator(PlottingMixin, Config):
         (``agents.simulate_presence_cases_compacting``); the reference
         loops them serially through its pool (ssrs/simulator.py:348-386).
         The tables of fluidflow items are built at once; drw items have
-        no table. One ``batched_tracks`` phase record, one ``_counts.npy``
-        a work item."""
+        no table. With a mesh of more than one entry, case i runs on
+        ``mesh[i % len(mesh)]`` (``ssrs_tpu/simulator.py:790-795``). One
+        ``batched_tracks`` phase record, one ``_counts.npy`` a work
+        item."""
+        mesh = self.mesh
         gens = [case_generator(self.sim_seed, case_id, real_id, 'tracks',
-                               self.device)
-                for case_id, real_id, _, _ in work]
+                               mesh[i % len(mesh)])
+                for i, (case_id, real_id, _, _) in enumerate(work)]
         if work[0][2] is None:
             tables = [None] * len(work)
         else:
@@ -737,11 +787,11 @@ class Simulator(PlottingMixin, Config):
         print(f'Simulating {len(work)} cases x {self.track_count} '
               'tracks (batched)..', end='', flush=True)
         start_time = time.time()
-        tail = int(self.track_tail_bucket) \
-            if self.track_tail_bucket != 'auto' else 'auto'
-        with self.timer.phase('batched_tracks', cases=len(work)):
+        with self.timer.phase('batched_tracks', cases=len(work),
+                              devices=len(mesh)):
             presence, steps = simulate_presence_cases_compacting(
-                params, tables, starts, gens, tail_bucket=tail)
+                params, tables, starts, gens, tail_bucket=self._tail_bucket(),
+                devices=mesh if len(mesh) > 1 else None)
             presence = presence.cpu().numpy().astype(np.int32)
         print(f'took {elapsed_str(start_time)}', flush=True)
         # useful steps = presence mass minus the start deposits

@@ -182,9 +182,9 @@ def test_default_device_needs_a_card(tmp_path):
 
 
 @pytest.mark.parametrize('override', [
-    dict(mesh_devices=2, movement_model='drw'),
+    dict(potential_solver='multigrid', movement_model='drw'),
     dict(potential_solver='mg'), dict(track_presence_impl='scatter'),
-    dict(mesh_devices=2), dict(track_step_impl='xla'),
+    dict(track_step_impl='pallas'), dict(track_step_impl='xla'),
     dict(potential_batch=2),
 ])
 def test_out_of_slice_configs_raise(tmp_path, override):
