@@ -47,6 +47,18 @@ thermal realizations through the batched driver, with device-resident
 fields and through numpy (bitwise-equal artifacts); and a drw run
 (no potential, a second run equal to the first).
 
+The solver options, at the same width: the sweep again with its eight
+potentials in one batched solve (``potential_batch=8``: each case
+converged or fallen back, its interior residual, range and boundary, the
+counts; a second batched solve bitwise equal; each case beside its single
+solve of the sweep; the group's time, peak memory and the launches of
+one batched V-cycle); the 460x460 hard field in a batch of four, within
+0.05 of the direct solve; the legacy multigrid on the tests' and the hard
+field and in a uniform run of 100,000 tracks (``potential_solver='mg'``);
+and a uniform run with ``track_tail_bucket='auto'`` on the main run's
+cached potential (its round trip, per-slot cost and last bucket, against
+the main run's tail).
+
 The WTK modes, at the same width, from a stand-in for the WindToolKit
 archive that the script builds (an hourly 2-km grid of six layers for
 2012: a real ``.h5`` where ``h5py`` imports, else an ``h5py``-shaped
@@ -245,6 +257,19 @@ ORO_RTOL, ORO_ATOL = 1e-5, 1e-4
 # cases over the first SWEEP_MESH of them
 SHARDS = 4
 SWEEP_MESH = 2
+# the solver options: the direction sweep in one batch of its eight cases;
+# the hard field beside three others of its shape (seeds 2-4); the legacy
+# multigrid's residual norm on the hard field after 300 V-cycles, which
+# both packages read at 7.832 on the CPU (the bound of
+# tests/test_potential.py:119-130, 0.012 on its 24x30 field, holds there
+# and is checked there)
+BATCH_SWEEP = 8
+HARD_BATCH_SEEDS = (1, 2, 3, 4)
+MG_SHAPE = (24, 30)
+MG_HARD_RESID = 7.832
+MG_RESID_SLACK = 1.05
+# the compacting drivers' default min_bucket (agents/simulate.py)
+AUTO_MIN_BUCKET = 1024
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device-memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1883,6 +1908,290 @@ def phase_sweep(torch, device_name, out):
         'rerun_batched_tracks_s': rerun['seconds']}
 
 
+def _batched_vcycle_launches(torch, conds, dirn):
+    """(launches, device ms) of one V-cycle of the refined solver's level
+    hierarchy of ``conds``, a (C, nrow, ncol) batch on the card or one
+    field, under torch.profiler."""
+    from ssrs_tpu_torch.potential import lap
+    from ssrs_tpu_torch.potential.boundary import boundary_masks
+    bmask, _ = boundary_masks(dirn, tuple(conds.shape[-2:]))
+    labels, k = lap.batch_island_labels(
+        (conds > 0).reshape(-1, *conds.shape[-2:]).cpu().numpy(), bmask)
+    levels = lap.build_lap_levels(
+        lap.symmetrize_planes(lap.weight_planes(conds)),
+        torch.from_numpy(bmask).cuda(), labels.reshape(conds.shape), k + 1)
+    rhs = torch.rand(conds.shape, device=conds.device)
+    lap.vcycle(levels, rhs, torch.zeros_like(rhs))
+    launches, device_ms, _ = _profile_launches(
+        torch, lambda: lap.vcycle(levels, rhs, torch.zeros_like(rhs)))
+    return launches, device_ms
+
+
+def _check_potential(label, pot, cond, dirn):
+    """The invariants of the reference's system on a saved potential: the
+    float64 interior residual, the range and the exact boundary. Returns
+    the residual."""
+    from ssrs_tpu_torch.potential.boundary import boundary_masks
+    from ssrs_tpu_torch.potential.direct import interior_residual
+    bmask, bvals = boundary_masks(dirn, pot.shape)
+    resid = interior_residual(pot, cond, dirn)
+    if not resid <= INTERIOR_RESID_MAX:
+        fail(f'{label}: interior residual {resid:.3e} > '
+             f'{INTERIOR_RESID_MAX}')
+    if pot.min() < -RANGE_SLACK or pot.max() > 1000. + RANGE_SLACK or \
+            not np.array_equal(pot[bmask], bvals[bmask]):
+        fail(f'{label}: potential range {pot.min()}..{pot.max()} or its '
+             'boundary is off')
+    return resid
+
+
+def phase_solver_options(torch, device_name, out, main_sim, main_saved,
+                         solver, sweep):
+    """The solver options at the README region's width: the direction
+    sweep with its eight potentials in one batched solve
+    (``potential_batch``), against ``phase_sweep``'s single solves; the
+    460x460 hard field in a batch of four; the legacy multigrid
+    (``potential_solver='mg'``) on the hard field and in a uniform run;
+    the self-tuned tail (``track_tail_bucket='auto'``) in a uniform run
+    on the main run's cached potential. Returns the launches of the three
+    runs, each counted from 0 just before it, and the phase's numbers."""
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.agents import simulate as tsim
+    from ssrs_tpu_torch.potential import (boundary_masks,
+                                          solve_potential_direct,
+                                          solve_potential_for_direction,
+                                          solve_potential_refined_batch)
+    from ssrs_tpu_torch.potential.fields import conductivity_hard
+    launched = {}
+
+    # the batched sweep
+    cfg = Config(out_dir=out, **{**MAIN_CONFIG, 'run_name': 'wy_sweep_batch',
+                                 'potential_batch': BATCH_SWEEP})
+    sim = Simulator(cfg)
+    if sim._potential_batch_cap() < BATCH_SWEEP:
+        fail(f'batched sweep: cap {sim._potential_batch_cap()} < '
+             f'{BATCH_SWEEP}')
+    tracks = cfg.track_count
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cases = sim.simulate_direction_sweep(SWEEP_DIRNS)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launched['batched_sweep'] = _read_counts()
+    pots = [r for r in sim.timer.records if r['phase'] == 'potential']
+    rec = [r for r in sim.timer.records if r['phase'] == 'batched_tracks'][0]
+    if len(pots) != len(SWEEP_DIRNS) or \
+            any(r.get('batch') != BATCH_SWEEP for r in pots):
+        fail(f'batched sweep: records {pots}')
+    _check_batched_launches('batched sweep', launched['batched_sweep'], rec)
+    burnin = sim.grid.burnin_length()
+    dirn = float(sim.track_direction)
+    conds, saved = [], []
+    for r, c in zip(pots, cases):
+        if not (r['rrel'] < RREL_MAX or r['fallback']):
+            fail(f'batched sweep {c}: rrel {r["rrel"]:.3e} and no fallback')
+        cond = sim.load_updrafts(c)[0]
+        conds.append(cond)
+        saved.append(np.load(os.path.join(
+            sim.mode_data_dir, f'{sim._get_id_string(c, 0)}_potential.npy')))
+        r['interior_residual'] = _check_potential(
+            f'batched sweep {c}', saved[-1], cond.cpu().numpy(), dirn)
+        _check_case_counts(f'batched sweep {c}', np.load(os.path.join(
+            sim.mode_data_dir, f'{sim._get_id_string(c, 0)}_counts.npy')),
+            tracks, burnin)
+    # the group again, bitwise, its memory measured
+    bmask, bvals = boundary_masks(dirn, (NROW, NCOL))
+    group = torch.stack(conds)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again, rrels = solve_potential_refined_batch(
+        group, bmask, bvals, tol=float(cfg.potential_tol))
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    again = again.cpu().numpy()
+    for i, r in enumerate(pots):
+        if float(rrels[i]) != r['rrel'] or (
+                not r['fallback'] and not np.array_equal(again[i], saved[i])):
+            fail(f'batched sweep {cases[i]}: a second batched solve is not '
+                 'bitwise equal')
+    launches_b, device_ms_b = _batched_vcycle_launches(torch, group, dirn)
+    launches_1, device_ms_1 = _batched_vcycle_launches(torch, conds[0], dirn)
+    solo = sweep['potentials']
+    solo_s = sum(r['seconds'] for r in solo)
+    group_s = pots[0]['group_seconds']
+    say('batched sweep potentials (batched / single): ' + '; '.join(
+        f'{c} rrel {b["rrel"]:.2e} / {a["rrel"]:.2e}, V-cycles '
+        f'{b["vcycles"]} / {a["vcycles"]}, {b["seconds"]:.2f} / '
+        f'{a["seconds"]:.2f} s' + (' (fallback)' if b['fallback'] else '')
+        for c, b, a in zip(cases, pots, solo)))
+    say(f'batched sweep: {len(cases)} directions x {tracks} tracks in '
+        f'{sweep_s:.3f} s; one group of {BATCH_SWEEP} solved in '
+        f'{group_s:.3f} s (again {again_s:.3f} s, bitwise equal) against '
+        f'{solo_s:.3f} s for the sweep\'s eight single solves = '
+        f'{solo_s / group_s:.2f}x; peak {peak / 2**20:.1f} MiB = '
+        f'{peak / (BATCH_SWEEP * NROW * NCOL):.0f} B a cell and case; one '
+        f'batched V-cycle {launches_b} launches, {device_ms_b:.2f} ms device '
+        f'(one field: {launches_1}, {device_ms_1:.2f} ms); counts, '
+        f'{launched["batched_sweep"]["fused_chunk"]} chunk launches on '
+        f'{device_name}')
+    batched = {
+        'sweep_s': sweep_s, 'group_s': group_s, 'again_s': again_s,
+        'single_solves_s': solo_s, 'peak_bytes': peak,
+        'peak_bytes_per_cell_case': peak / (BATCH_SWEEP * NROW * NCOL),
+        'vcycle_launches': launches_b, 'vcycle_device_ms': device_ms_b,
+        'single_vcycle_launches': launches_1,
+        'single_vcycle_device_ms': device_ms_1,
+        'cases': [{k: r.get(k) for k in (
+            'id', 'rrel', 'fallback', 'passes', 'vcycles', 'seconds',
+            'interior_residual')} for r in pots]}
+
+    # the hard field in a batch of four
+    hards = [conductivity_hard(HARD_SHAPE, seed=s) for s in HARD_BATCH_SEEDS]
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hpots, hrrels = solve_potential_refined_batch(
+        torch.from_numpy(np.stack(hards)).cuda(), *boundary_masks(
+            0., HARD_SHAPE), stats=stats)
+    torch.cuda.synchronize()
+    hard_s = time.perf_counter() - t0
+    hard_err = float(np.abs(hpots[0].cpu().numpy().astype(np.float64) -
+                            solve_potential_direct(hards[0], 0.)).max())
+    if not (hard_err < HARD_ERR_MAX and hrrels[0] < RREL_MAX):
+        fail(f'hard field in a batch: max err {hard_err:.4g}, rrel '
+             f'{hrrels[0]:.3e}')
+    say(f'hard field {HARD_SHAPE[0]}x{HARD_SHAPE[1]} in a batch of '
+        f'{len(hards)} (seeds {HARD_BATCH_SEEDS}): max err {hard_err:.4g} < '
+        f'{HARD_ERR_MAX} against direct (alone: '
+        f'{solver["hard_460"]["max_abs_err"]:.4g}); rrel '
+        f'{", ".join(f"{r:.2e}" for r in hrrels)}; V-cycles '
+        f'{stats["vcycles"]} (alone: {solver["hard_460"]["vcycles"]}); '
+        f'{hard_s:.3f} s (alone: {solver["hard_460"]["seconds"]:.3f} s)')
+    hard = {'max_abs_err': hard_err, 'rrel': [float(r) for r in hrrels],
+            'seconds': hard_s, **stats}
+
+    # the legacy multigrid: the tests' field and the hard field, then a run
+    mg = {}
+    for label, cond, bound in (
+            ('tests field', conductivity_hard(MG_SHAPE, seed=1), None),
+            ('hard field', hards[0], MG_HARD_RESID * MG_RESID_SLACK)):
+        bm, bv = boundary_masks(0., cond.shape)
+        if bound is None:
+            bound = 1e-7 * float(np.linalg.norm(bv)) + 1e-2
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pot, resid = solve_potential_for_direction(
+            torch.from_numpy(cond).cuda(), 0., tol=1e-7, maxiter=300,
+            stats=stats)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        pot = pot.cpu().numpy()
+        if not resid < bound or pot.min() < -1. or pot.max() > 1001. or \
+                not np.array_equal(pot[bm], bv[bm]):
+            fail(f'mg, {label}: residual norm {resid:.4g} (bound '
+                 f'{bound:.4g}), range {pot.min()}..{pot.max()}, or the '
+                 'boundary is off')
+        mg[label] = {'residual_norm': resid, 'bound': bound,
+                     'seconds': secs, **stats}
+    cfg = Config(out_dir=out, **{**MAIN_CONFIG, 'run_name': 'wy_mg',
+                                 'potential_solver': 'mg'})
+    mg_sim = Simulator(cfg)
+    _reset_counts()
+    mg_sim.simulate_tracks()
+    launched['mg_run'] = _read_counts()
+    records = {r['phase']: r for r in mg_sim.timer.records}
+    _check_chunk_launches('mg run', launched['mg_run'],
+                          records['tracks']['steps'])
+    _check_flush_launches('mg run', launched['mg_run'])
+    counts = mg_sim.get_presence_counts(mg_sim.case_ids[0], 0)
+    _check_case_counts('mg run', counts.astype(np.int32), tracks,
+                       mg_sim.grid.burnin_length())
+    prec = records['potential']
+    if prec['solver'] != 'mg' or prec['fallback']:
+        fail(f'mg run: potential record {prec}')
+    mg['run'] = {k: prec[k] for k in ('seconds', 'vcycles', 'residual_norm')}
+    mg['run']['tracks_s'] = records['tracks']['seconds']
+    say(f'mg: tests field {MG_SHAPE} residual norm '
+        f'{mg["tests field"]["residual_norm"]:.4g} < '
+        f'{mg["tests field"]["bound"]:.4g}; hard field residual norm '
+        f'{mg["hard field"]["residual_norm"]:.4g} < '
+        f'{mg["hard field"]["bound"]:.4g} after '
+        f'{mg["hard field"]["vcycles"]} V-cycles in '
+        f'{mg["hard field"]["seconds"]:.3f} s; uniform run: '
+        f'{prec["vcycles"]} V-cycles in {prec["seconds"]:.3f} s (residual '
+        f'norm {prec["residual_norm"]:.4g}), tracks '
+        f'{records["tracks"]["seconds"]:.3f} s, counts checked')
+
+    # the self-tuned tail, on the main run's cached potential
+    cfg = Config(out_dir=out, **{**MAIN_CONFIG, 'run_name': 'wy_auto',
+                                 'track_tail_bucket': 'auto'})
+    auto_sim = Simulator(cfg)
+    ident = main_sim._get_id_string(main_sim.case_ids[0], 0)
+    shutil.copy(os.path.join(main_sim.mode_data_dir,
+                             f'{ident}_potential.npy'), auto_sim.mode_data_dir)
+    buckets = []
+    real = tsim._compact_body
+
+    def spy(state, m):
+        buckets.append(m)
+        return real(state, m)
+
+    tsim._compact_body = spy
+    _reset_counts()
+    try:
+        auto_sim.simulate_tracks()
+    finally:
+        tsim._compact_body = real
+    launched['auto_run'] = _read_counts()
+    records = {r['phase']: r for r in auto_sim.timer.records}
+    if records['potential']['solver'] != 'cache':
+        fail('auto run: the potential was not taken from the cache')
+    steps = records['tracks']['steps']
+    _check_chunk_launches('auto run', launched['auto_run'], steps)
+    _check_flush_launches('auto run', launched['auto_run'])
+    counts = auto_sim.get_presence_counts(auto_sim.case_ids[0], 0)
+    mass = _check_case_counts('auto run', counts.astype(np.int32), tracks,
+                              auto_sim.grid.burnin_length())
+    if mass != records['tracks']['useful_steps'] + tracks:
+        fail(f'auto run: counts {mass} != the map\'s mass '
+             f'{records["tracks"]["useful_steps"] + tracks}')
+    # the rule only ever stops compaction: a run that packed nothing, or
+    # packed down to min_bucket, ran tail 0's buckets, so its counts are
+    # the main run's (saved before the recorded run took its file name)
+    same = not buckets or buckets[-1] == AUTO_MIN_BUCKET
+    if same and not np.array_equal(counts, main_saved['counts']):
+        fail('auto run: tail 0\'s buckets but not the main run\'s counts')
+    params = auto_sim._track_params()
+    rtt = tsim._dispatch_overhead(auto_sim.device)
+    per_slot = tsim._PER_SLOT.get((params, DRIVER_CHUNK,
+                                   auto_sim.device.type))
+    main_tracks = {r['phase']: r for r in main_sim.timer.records}['tracks']
+    auto = {'rtt_s': rtt, 'per_slot_s': per_slot, 'buckets': buckets,
+            'counts_equal_tail0': same,
+            'stopped_at': buckets[-1] if buckets else None, 'steps': steps,
+            'chunk_launches': launched['auto_run']['fused_chunk'],
+            'tail0_steps': main_tracks['steps'],
+            'tracks_s': records['tracks']['seconds'],
+            'tail0_tracks_s': main_tracks['seconds']}
+    say(f'auto tail: round trip {rtt * 1e6:.1f} us, per slot '
+        f'{(per_slot or 0) * 1e12:.1f} ps, compactions to {buckets} '
+        f'(stopped at {auto["stopped_at"]}); {steps} steps in '
+        f'{launched["auto_run"]["fused_chunk"]} chunk launches, '
+        f'{records["tracks"]["seconds"]:.3f} s, against tail 0: '
+        f'{main_tracks["steps"]} steps, {main_tracks["seconds"]:.3f} s; '
+        'counts = mass' + (', = the main run\'s' if same else '') +
+        f' on {device_name}')
+    total = {k: sum(run[k] for run in launched.values())
+             for k in launched['auto_run']}
+    return total, {'batched_sweep': batched, 'hard_batch': hard, 'mg': mg,
+                   'auto_tail': auto}
+
+
 def phase_thermals_run(torch, device_name, out):
     """Two thermal realizations at the README region's width, 100,000
     tracks each, counts only: three work items through the batched driver,
@@ -3198,6 +3507,8 @@ def main() -> int:
         recorded, count_real = phase_recorded(torch, name, out)
         thermals = phase_thermals(torch, sim)
         sweep_run, sweep = phase_sweep(torch, name, out)
+        options_run, options = phase_solver_options(
+            torch, name, out, sim, main_saved, solver, sweep)
         thermals_run, thermals_path = phase_thermals_run(torch, name, out)
         drw_run, drw = phase_drw(torch, name, out)
         template, wtk_reads = phase_wtk_archive(out)
@@ -3308,7 +3619,8 @@ def main() -> int:
                      'launches_drw_run': drw_run,
                      'launches_seasonal_run': seasonal_run,
                      'launches_snapshot_run': snapshot_run,
-                     'launches_cli_run': cli_run}
+                     'launches_cli_run': cli_run,
+                     'launches_solver_options': options_run}
         for key, counted in new_paths.items():
             k[key] = counted[k['name']]
             if k[key] < 1 and k['name'] in ('fused_chunk', 'presence_flush'):
@@ -3338,6 +3650,7 @@ def main() -> int:
     count = {key: hist[key] for key in ('count_hot_cell', 'count_bands',
                                         'count_sweep')}
     cases = {'no_table': no_table, 'thermals': thermals, 'sweep': sweep,
+             'solver_options': options,
              'thermals_run': thermals_path, 'drw': drw,
              'seasonal': seasonal, 'snapshot': snapshot, 'cli': cli,
              'sharded': sharded}

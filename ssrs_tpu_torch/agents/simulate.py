@@ -384,15 +384,13 @@ def _bucket_for(n_alive: int, min_bucket: int, quantum: int = 1) -> int:
 
 def _norm_tail_bucket(tail_bucket, min_bucket: int) -> int:
     """Normalize the ``tail_bucket`` knob (Config.track_tail_bucket can
-    arrive from a run JSON): 0 -> stop compacting at ``min_bucket``,
+    arrive from a run JSON): 0 or ``'auto'`` -> stop compacting at
+    ``min_bucket`` (``'auto'`` may stop earlier, :class:`_AutoTail`),
     negative int -> -1 (never switch; compaction still stops at
     ``min_bucket``), positive int -> that bucket floored at
-    ``min_bucket``. ``'auto'`` (the JAX package's self-tuned switch) is
-    not ported."""
+    ``min_bucket``."""
     if tail_bucket == 'auto':
-        raise NotImplementedError(
-            "tail_bucket='auto' is not ported: it tunes the JAX package's "
-            'remote-dispatch tail and has no counterpart on a local card')
+        return min_bucket
     if isinstance(tail_bucket, (int, np.integer)) \
             and not isinstance(tail_bucket, bool):
         tb = int(tail_bucket)
@@ -400,9 +398,70 @@ def _norm_tail_bucket(tail_bucket, min_bucket: int) -> int:
             return min_bucket
         return -1 if tb < 0 else max(min_bucket, tb)
     raise ValueError(
-        "tail_bucket must be 0 (switch at min_bucket), a negative int "
-        '(never switch), or a positive int bucket; got '
+        "tail_bucket must be 'auto', 0 (switch at min_bucket), a negative "
+        'int (never switch), or a positive int bucket; got '
         f'{tail_bucket!r}')
+
+
+# the measured launch round trip of each device, and the per-slot cost
+# estimates of tail_bucket='auto', keyed (params, chunk, device type):
+# both live as long as the process, as in the JAX package
+_DISPATCH_OVERHEAD: dict = {}
+_PER_SLOT: dict = {}
+
+
+def _dispatch_overhead(device) -> float:
+    """One launch on ``device`` and the read of its result on the host
+    (seconds): the shorter of two timed round trips after one untimed,
+    measured once per process and device."""
+    key = str(torch.device(device))
+    if key not in _DISPATCH_OVERHEAD:
+        x = torch.zeros((), dtype=torch.int32, device=device)
+        (x + 1).item()
+        t0 = time.perf_counter()
+        (x + 1).item()
+        t1 = time.perf_counter()
+        (x + 1).item()
+        _DISPATCH_OVERHEAD[key] = min(t1 - t0, time.perf_counter() - t1)
+    return _DISPATCH_OVERHEAD[key]
+
+
+class _AutoTail:
+    """``tail_bucket='auto'``, the JAX package's self-tuned switch
+    (``ssrs_tpu/agents/simulate.py:1135-1230``): compaction stops at the
+    first bucket ``m`` whose chunk costs the device less than two host
+    round trips, ``m * chunk * per_slot < 2 * rtt``. ``rtt`` is
+    :func:`_dispatch_overhead`; ``per_slot`` the least of the chunk walls
+    above it, less it, over the slots they carried, kept for the process.
+    The JAX package switches there to a one-dispatch tail; the port has
+    none, so its switch is the end of compaction.
+
+    Opt-in and not deterministic: the bucket where it stops depends on
+    wall clocks, and the random stream's split over the agents depends on
+    the buckets. On a local card the round trip is tens of microseconds,
+    so the rule stops where ``min_bucket`` would, unless chunks are that
+    short."""
+
+    def __init__(self, params: TrackParams, chunk: int, device):
+        self.chunk = chunk
+        self.rtt = _dispatch_overhead(device)
+        self.key = (params, chunk, torch.device(device).type)
+        self.per_slot = _PER_SLOT.get(self.key)
+
+    def observe(self, wall: float, slots: int) -> None:
+        """Fold in a wall of chunks that carried ``slots`` agents (the
+        sum of their buckets). A wall at or below the round trip says
+        nothing of the device and is dropped."""
+        if wall > self.rtt:
+            est = (wall - self.rtt) / (slots * self.chunk)
+            self.per_slot = est if self.per_slot is None \
+                else min(self.per_slot, est)
+            _PER_SLOT[self.key] = self.per_slot
+
+    def stops_at(self, m: int) -> bool:
+        """Whether compaction stops at the bucket ``m`` just packed."""
+        return self.per_slot is not None and \
+            m * self.chunk * self.per_slot < 2 * self.rtt
 
 
 def _compact_body(state: SimState, m: int):
@@ -531,23 +590,31 @@ def simulate_presence_compacting(params: TrackParams, start_rc,
     falls below the current bucket, the survivors are packed into the
     next {1,1.5}*2^k bucket.
     ``tail_bucket`` sets the bucket below which no compaction happens
-    (:func:`_norm_tail_bucket`). The run stops when every agent is dead
-    or after ``params.nsteps`` steps. Deterministic for a fixed generator
-    state on one device.
+    (:func:`_norm_tail_bucket`; ``'auto'``: :class:`_AutoTail`). The run
+    stops when every agent is dead or after ``params.nsteps`` steps.
+    Deterministic for a fixed generator state on one device, unless
+    ``tail_bucket`` is ``'auto'``.
 
     Returns (presence int32 (nrow, ncol) on the device, steps taken).
     """
     state, advance = _prologue(params, start_rc, generator, updraft,
                                potential, valid, base_flat, dirp)
     floor = max(min_bucket, _norm_tail_bucket(tail_bucket, min_bucket))
+    auto = _AutoTail(params, chunk, generator.device) \
+        if tail_bucket == 'auto' else None
     # optimistic initial count: a population that starts all dead ends
     # the loop after one chunk of no-op steps
     n_alive = state.pos_r.shape[0]
     while state.step < params.nsteps and n_alive > 0:
+        t0 = time.perf_counter()
+        cur = state.pos_r.shape[0]
         state = advance(state, min(chunk, params.nsteps - state.step),
                         generator)
         n_alive = int(state.alive.sum())
+        if auto is not None:
+            auto.observe(time.perf_counter() - t0, cur)
         state = _shrink(state, n_alive, floor, min_bucket)
+        floor = _auto_floor(auto, state, cur, floor)
     state = flush_pending(state)
     return state.presence, state.step
 
@@ -563,6 +630,15 @@ def _shrink(state: SimState, n_alive: int, floor: int,
         if m < cur:
             state, _ = _compact_body(state, m)
     return state
+
+
+def _auto_floor(auto: Optional[_AutoTail], state: SimState, cur: int,
+                floor: int) -> int:
+    """A driver's compaction floor after a chunk that began at bucket
+    ``cur``: the bucket just packed where :class:`_AutoTail` stops there,
+    else ``floor``."""
+    m = state.pos_r.shape[0]
+    return m if auto is not None and m < cur and auto.stops_at(m) else floor
 
 
 def _case_starts(start_rc, n_cases: int):
@@ -642,7 +718,10 @@ def simulate_presence_cases_compacting(params: TrackParams, base_tables,
         device, or case i's on ``devices[i % len(devices)]``
     dirps : optional (C, 9) per-case directional priors; None derives the
         shared prior from ``params.move_dirn``
-    tail_bucket : as in :func:`simulate_presence_compacting`
+    tail_bucket : as in :func:`simulate_presence_compacting`; with
+        ``'auto'`` each case stops compacting on its own, the per-slot
+        cost estimated from whole rounds (the round's wall over the slots
+        of its chunks, its host packing included)
     valid : optional (N,) flags of real agents, shared, or a list of C
         per-case flags
     devices : optional list of devices; case i runs on
@@ -673,7 +752,10 @@ def simulate_presence_cases_compacting(params: TrackParams, base_tables,
     tables = list(base_tables)
     if devices:
         tables = _place_cases(tables, generators, devices)
-    floor = max(min_bucket, _norm_tail_bucket(tail_bucket, min_bucket))
+    floors = [max(min_bucket, _norm_tail_bucket(tail_bucket, min_bucket))
+              ] * n_cases
+    auto = _AutoTail(params, chunk, generators[0].device) \
+        if tail_bucket == 'auto' else None
     states, advances = {}, {}
     for i in range(n_cases):
         states[i], advances[i] = _prologue(
@@ -681,6 +763,8 @@ def simulate_presence_cases_compacting(params: TrackParams, base_tables,
             tables[i], None if dirps is None else dirps[i])
     active = list(range(n_cases))
     while active:
+        t0 = time.perf_counter()
+        curs = {i: states[i].pos_r.shape[0] for i in active}
         # enqueue: one chunk and its alive count for every active case;
         # nothing here waits for the card
         counts = {}
@@ -697,8 +781,13 @@ def simulate_presence_cases_compacting(params: TrackParams, base_tables,
             if states[i].step >= params.nsteps or n_alive == 0:
                 states[i] = flush_pending(states[i])
             else:
-                states[i] = _shrink(states[i], n_alive, floor, min_bucket)
+                states[i] = _shrink(states[i], n_alive, floors[i],
+                                    min_bucket)
                 still.append(i)
+        if auto is not None:
+            auto.observe(time.perf_counter() - t0, sum(curs.values()))
+            for i in still:
+                floors[i] = _auto_floor(auto, states[i], curs[i], floors[i])
         active = still
     # case 0 runs on devices[0]
     home = states[0].presence.device

@@ -89,17 +89,19 @@ class Config:
     # presence accumulation mode of the JAX package (unused by the port)
     presence_accumulator: str = 'scan-scatter'
     # potential solver: 'auto' or 'refined' (the refined solver on the
-    # run's device), 'direct' or 'dense' (host float64 SuperLU); the JAX
-    # package's legacy 'mg' / 'multigrid' is not ported
-    potential_solver: str = 'auto'  # auto, refined, direct, dense
+    # run's device), 'direct' or 'dense' (host float64 SuperLU), 'mg' or
+    # 'multigrid' (the legacy row-normalized multigrid on the run's device)
+    potential_solver: str = 'auto'  # auto, refined, direct, dense, mg
     # scaled-residual target of the refined solver
     potential_tol: float = 1e-7
-    potential_maxiter: int = 0  # V-cycles per GCR solve; <= 0 means 60
+    # V-cycles per GCR solve of the refined solver (<= 0: 60), or in all
+    # of the multigrid's solve (<= 0: 200)
+    potential_maxiter: int = 0
     # largest grid (cells) on which a stalled device solve may fall back
     # to the float64 direct solver; <= 0 lifts the cap
     potential_fallback_max_unknowns: int = 8_000_000
-    # multi-case potential solves: 0 = auto (off), 1 = off, >1 = batch
-    # cap of the JAX package's batched solve, which the port does not have
+    # multi-case potential solves: 0 = auto (off), 1 = off, >1 = cap of
+    # the cases one batched refined solve carries
     potential_batch: int = 0
     # number of devices to shard agents over (0 = all local)
     mesh_devices: int = 0

@@ -183,7 +183,10 @@ def simulate_presence_sharded_compacting(
     the shards interleaved round-robin by
     ``simulate_presence_cases_compacting``, with the table built once and
     copied to each distinct device. ``tail_bucket`` as in
-    ``simulate_presence_compacting`` (``'auto'`` raises).
+    ``simulate_presence_cases_compacting``: with ``'auto'`` each shard
+    stops compacting on its own, where the measured rule says (the JAX
+    package's sharded driver takes ``'auto'`` as ``min_bucket``, since its
+    shards share one bucket).
 
     Returns (presence int32 (nrow, ncol) on mesh[0], globally summed,
     steps: the most any shard took)."""

@@ -30,20 +30,24 @@ as in JAX. Per-island sums run in float64 (the deflation divides by
 ``z^T A z ~ 1e-8``), in a fixed order (see :func:`island_sum`), so two
 solves of one field on one device give the same bits.
 
-The cycle, the GCR and the refinement take a field as a tensor on one
-device or as row blocks over several (``parallel/fields.py``'s
-``RowBlocks``, whose arithmetic runs block by block): one code for both.
-The few operations that differ go through :func:`_each`, :func:`_total`,
-:func:`_norm`, :func:`_spread`, :func:`_apply_lap` and
-:func:`island_sum`, which take the plain torch call on a tensor.
+The cycle, the GCR and the refinement take a field in one of three
+kinds: a ``(nrow, ncol)`` tensor on one device; row blocks over several
+(``parallel/fields.py``'s ``RowBlocks``, whose arithmetic runs block by
+block); or a batch of C cases of one grid and one direction, a
+``(C, nrow, ncol)`` tensor whose planes are ``(8, C, nrow, ncol)``
+(:func:`solve_potential_refined_batch`). One code for all three. The few
+operations that differ go through :func:`_each`, :func:`_total`,
+:func:`_norm`, :func:`_spread`, :func:`_keep`, :func:`_apply_lap`,
+:func:`island_sum` and :func:`_island_max`, which take the plain torch
+call on a tensor and reduce per case on a batch.
 
 What the TPU needed and the card does not, and is left out: the tiled
 label dictionary (XLA lowers ``segment_sum`` to a serial scatter on the
 TPU), the parity-mask ``reduce_window`` and selector-matmul transfers
 (TPU lane layout), the power-of-4 padding of the island count (XLA
-recompiles), the batched multi-case solve and the row-sharding
-constraints. No matmul or convolution is left in the solver, so TF32
-cannot enter it whatever the backend flags say.
+recompiles), the batch's padding to its cases' maxima and the
+row-sharding constraints. No matmul or convolution is left in the
+solver, so TF32 cannot enter it whatever the backend flags say.
 
 Reference semantics: ``MovModel.solve_sparse_linear_system``
 (ssrs/movmodel.py:86-128), edge weights ``harmonic_mean/fac`` with the
@@ -60,18 +64,23 @@ import torch
 import torch.nn.functional as F
 
 from ..agents.moves import NEIGHBOR_DELTAS
-from .solver import _DIRS, _shift, weight_planes
+from .solver import _DIRS, _on_device, _shift, weight_planes
 
 _DELTAS = [(int(NEIGHBOR_DELTAS[m, 0]), int(NEIGHBOR_DELTAS[m, 1]))
            for m in _DIRS]
 _DELTA_TO_K = {d: k for k, d in enumerate(_DELTAS)}
 
-__all__ = ['solve_potential_refined', 'weight_planes', 'symmetrize_planes',
-           'island_labels', 'island_sound_mask', 'build_lap_levels',
-           'vcycle']
+__all__ = ['solve_potential_refined', 'solve_potential_refined_batch',
+           'weight_planes', 'symmetrize_planes', 'island_labels',
+           'island_sound_mask', 'build_lap_levels', 'vcycle']
 
 
-# ---- fields: one tensor, or row blocks ------------------------------------------
+# ---- fields: one tensor, row blocks, or a batch of cases ----------------------
+
+
+def _is_batch(x) -> bool:
+    """Whether ``x`` is a batch of cases: a ``(C, nrow, ncol)`` tensor."""
+    return torch.is_tensor(x) and x.dim() == 3
 
 
 def _each(fn, x, *others):
@@ -82,18 +91,35 @@ def _each(fn, x, *others):
 
 def _total(x) -> torch.Tensor:
     """The sum of a field's cells (row blocks: their partials, in block
-    order, on the first device)."""
+    order, on the first device; a batch: each case's, shaped (C, 1, 1))."""
+    if _is_batch(x):
+        return torch.sum(x, dim=(-2, -1), keepdim=True)
     return torch.sum(x) if torch.is_tensor(x) else x.total()
 
 
 def _norm(x) -> torch.Tensor:
-    """The 2-norm of a field (row blocks: of their norms)."""
+    """The 2-norm of a field (row blocks: of their norms; a batch: each
+    case's, shaped (C, 1, 1))."""
+    if _is_batch(x):
+        return torch.linalg.vector_norm(x, dim=(-2, -1), keepdim=True)
     return torch.linalg.vector_norm(x) if torch.is_tensor(x) else x.norm()
 
 
 def _spread(c: torch.Tensor, labels):
     """``c[labels]``: a per-island vector spread over the cells."""
     return c[labels] if torch.is_tensor(labels) else labels.spread(c)
+
+
+def _keep(active, new, old):
+    """A batch's ``new`` where its case is ``active`` ((C, 1, 1) bool) and
+    ``old`` where it has finished; any other field is ``new``."""
+    return torch.where(active, new, old) if _is_batch(old) else new
+
+
+def _host(x) -> np.ndarray:
+    """A per-case device value (a scalar, or a batch's (C, 1, 1)) on the
+    host, shaped (cases,)."""
+    return x.reshape(-1).cpu().numpy()
 
 
 # ---- operator ---------------------------------------------------------------
@@ -134,10 +160,10 @@ def _apply_lap_padded(planes: torch.Tensor,
     sharded field passes its neighbour blocks' edge rows in the frame
     (``parallel/fields.py``)."""
     nrow, ncol = planes.shape[-2:]
-    u = upad[1:1 + nrow, 1:1 + ncol]
+    u = upad[..., 1:1 + nrow, 1:1 + ncol]
     acc = torch.zeros_like(u)
     for k, (dr, dc) in enumerate(_DELTAS):
-        nb = upad[dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
+        nb = upad[..., dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
         acc = acc + planes[k] * (u - nb)
     return acc
 
@@ -155,11 +181,11 @@ def _crossing_planes(planes: torch.Tensor,
     O(10)-potential-unit corrections (``ssrs_tpu/potential/lap.py``,
     ``LapLevel.labels``). JAX masks on the fly to save TPU memory; the
     port keeps one masked stack per level (32 bytes a cell)."""
-    nrow, ncol = labels.shape
+    nrow, ncol = labels.shape[-2:]
     labpad = F.pad(labels, (1, 1, 1, 1), value=-1)
     out = []
     for k, (dr, dc) in enumerate(_DELTAS):
-        nb_lab = labpad[dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
+        nb_lab = labpad[..., dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
         internal = (labels > 0) & (nb_lab == labels)
         out.append(torch.where(internal, 0., planes[k]))
     return torch.stack(out)
@@ -198,7 +224,7 @@ def _galerkin_coarsen(planes: torch.Tensor) -> torch.Tensor:
                 if (di, dj) == (0, 0):
                     continue  # internal fine edge
                 kc = _DELTA_TO_K[(di, dj)]
-                term = wp[k, i::2, j::2]
+                term = wp[k, ..., i::2, j::2]
                 coarse[kc] = term if coarse[kc] is None else coarse[kc] + term
     return torch.stack(coarse)
 
@@ -207,8 +233,8 @@ def _restrict(r: torch.Tensor) -> torch.Tensor:
     """Block-sum restriction (adjoint of piecewise-constant
     prolongation): each coarse cell sums its 2x2 block."""
     rp = _pad_even(r)
-    m, n = rp.shape
-    return rp.reshape(m // 2, 2, n // 2, 2).sum(dim=(1, 3))
+    *lead, m, n = rp.shape
+    return rp.reshape(*lead, m // 2, 2, n // 2, 2).sum(dim=(-3, -1))
 
 
 def _coarsen_bmask(bmask: torch.Tensor) -> torch.Tensor:
@@ -219,8 +245,8 @@ def _coarsen_bmask(bmask: torch.Tensor) -> torch.Tensor:
 
 def _prolong_pc(e: torch.Tensor, fine_shape: Tuple[int, int]) -> torch.Tensor:
     """Piecewise-constant prolongation, cropped to the fine shape."""
-    out = e.repeat_interleave(2, dim=0).repeat_interleave(2, dim=1)
-    return out[:fine_shape[0], :fine_shape[1]]
+    out = e.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    return out[..., :fine_shape[-2], :fine_shape[-1]]
 
 
 # ---- islands -----------------------------------------------------------------
@@ -257,23 +283,39 @@ def island_labels(conductivity: np.ndarray,
     return newid[lab], int(keep.sum())
 
 
+def batch_island_labels(pos: np.ndarray, bmask: np.ndarray
+                        ) -> Tuple[np.ndarray, int]:
+    """:func:`island_labels` of each case of a batch, ``pos`` the
+    (C, nrow, ncol) bool ``cond > 0``: case c's island j takes the label
+    offset_c + j, where offset_c counts the islands of the cases before
+    it; every background stays 0. Returns (labels int32, island count)."""
+    labels = np.zeros(pos.shape, np.int32)
+    k = 0
+    for c in range(pos.shape[0]):
+        lab, kc = island_labels(pos[c], bmask)
+        labels[c] = np.where(lab > 0, lab + k, 0)
+        k += kc
+    return labels, k
+
+
 def _host_coarsen_labels(labels: np.ndarray, bmask: np.ndarray
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """Host replica of the level coarsening: coarse Dirichlet = any fine
     Dirichlet in the 2x2 block; coarse label = max fine label, zeroed on
     coarse Dirichlet cells. Where distinct islands merge into one cell at
-    deep levels, the union is still a valid 1-D deflation subspace."""
-    m, n = labels.shape
+    deep levels, the union is still a valid 1-D deflation subspace. A
+    batch's ``(C, m, n)`` labels coarsen case by case against the shared
+    mask."""
+    *lead, m, n = labels.shape
     mp, npad = m + (m % 2), n + (n % 2)
-    lab = np.zeros((mp, npad), labels.dtype)
-    lab[:m, :n] = labels
+    lab = np.zeros((*lead, mp, npad), labels.dtype)
+    lab[..., :m, :n] = labels
     bm = np.zeros((mp, npad), bool)
     bm[:m, :n] = bmask
     bm_c = (bm[::2, ::2] | bm[1::2, ::2] | bm[::2, 1::2] | bm[1::2, 1::2])
-    lab_c = np.maximum(np.maximum(lab[::2, ::2], lab[1::2, ::2]),
-                       np.maximum(lab[::2, 1::2], lab[1::2, 1::2]))
-    lab_c[bm_c] = 0
-    return lab_c, bm_c
+    lab_c = np.maximum(np.maximum(lab[..., ::2, ::2], lab[..., 1::2, ::2]),
+                       np.maximum(lab[..., ::2, 1::2], lab[..., 1::2, 1::2]))
+    return np.where(bm_c, 0, lab_c).astype(labels.dtype), bm_c
 
 
 def island_sound_mask(labels_np: np.ndarray, num: int) -> np.ndarray:
@@ -282,18 +324,22 @@ def island_sound_mask(labels_np: np.ndarray, num: int) -> np.ndarray:
     quirk makes W nonsymmetric. Only for these is the outer island
     correction ``z^T r / z^T A z`` an orthogonal projection; for strip
     islands it is oblique and explodes, so they are left to the
-    symmetrized per-level deflation and GCR. Index 0 (background) is 0."""
+    symmetrized per-level deflation and GCR. Index 0 (background) is 0.
+    A batch's ``(C, nrow, ncol)`` labels (each case's islands numbered
+    after the previous case's) give every case's islands at once."""
     sound = np.zeros(num, np.float32)
     k = int(labels_np.max())
     if k:
-        strip = np.unique(labels_np[:, -2:])
+        strip = np.unique(labels_np[..., -2:])
         sound[1:k + 1] = 1.0
         sound[strip[strip > 0]] = 0.0
     return sound
 
 
 class IslandSegments(NamedTuple):
-    """One level's per-island reduction layout, built on the host."""
+    """One level's per-island reduction layout, built on the host. A
+    batch's labels are (C, nrow, ncol), each case's islands numbered after
+    the previous case's, every case's background 0."""
     labels: torch.Tensor   # (nrow, ncol) int64 island label per cell
     order: torch.Tensor    # (cells with label > 0,) int64 flat indices,
     #                        sorted by label
@@ -334,6 +380,15 @@ def island_sum(x: torch.Tensor, seg: IslandSegments) -> torch.Tensor:
         return seg.sum(x)
     vals = x.reshape(-1)[seg.order].to(torch.float64)
     return torch.segment_reduce(vals, 'sum', offsets=seg.offsets)
+
+
+def _island_max(c: torch.Tensor, seg) -> torch.Tensor:
+    """The largest entry of a non-negative per-island vector (0 at the
+    background): a batch's per case, shaped (C,), through its cells (every
+    island owns a cell of the level its layout is of)."""
+    if isinstance(seg, IslandSegments) and seg.labels.dim() == 3:
+        return c[seg.labels].amax(dim=(-2, -1))
+    return c.max()
 
 
 def island_zaz(planes: torch.Tensor, seg: IslandSegments) -> torch.Tensor:
@@ -390,7 +445,9 @@ def build_lap_levels(planes: torch.Tensor, bmask: torch.Tensor,
     """The V-cycle's level hierarchy: Galerkin coarsening of ``planes``
     until ``min(shape) <= _MIN_SIZE`` (8 levels at 500x600), with each
     level's island labels coarsened on the host. ``num`` is the island
-    count plus one; ``num == 1`` builds no island structures."""
+    count plus one; ``num == 1`` builds no island structures. A batch's
+    planes are (8, C, nrow, ncol) and its labels (C, nrow, ncol); the
+    mask is shared."""
     levels = []
     mask = bmask
     lab = np.asarray(labels, np.int32)
@@ -406,7 +463,7 @@ def build_lap_levels(planes: torch.Tensor, bmask: torch.Tensor,
         levels.append(LapLevel(planes=planes, planes_x=planes_x,
                                notb=(~mask).to(torch.float32), dinv=dinv,
                                seg=seg, zaz_inv=zaz_inv))
-        if min(lab.shape) <= _MIN_SIZE:
+        if min(lab.shape[-2:]) <= _MIN_SIZE:
             break
         lab, bm = _host_coarsen_labels(lab, bm)
         planes = _galerkin_coarsen(planes)
@@ -489,8 +546,8 @@ _REFINE_PASSES = 30  # budget of float64 refinement passes per solve
 
 
 def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
-               tol_abs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                               int]:
+               tol_abs: torch.Tensor, active=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
     """Solve A x = rhs (x clamped 0 at Dirichlet cells) by truncated
     flexible GCR preconditioned with one deflated V-cycle per iteration.
     Inner products are taken in the D^-1-weighted norm, so plateau rows
@@ -498,9 +555,16 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
 
     The history is a ring of the last ``_GCR_K`` directions, oldest
     first, as JAX's shifted buffer (whose empty slots contribute exact
-    zeros). The exit test reads one device scalar per iteration, the
-    only host sync of an iteration. Returns (x, scaled residual norm,
-    iterations = V-cycles)."""
+    zeros). The exit test reads one device value per iteration, the
+    only host sync of an iteration.
+
+    On a batch the test is per case, as under JAX's ``vmap`` of the
+    loop: the loop runs while any case goes on, and a case that has
+    stopped keeps its iterate and its norms (:func:`_keep`). A stopped
+    case never goes on again, so what its history becomes does not
+    matter. ``active`` ((C, 1, 1) bool) marks the cases that start at
+    all. Returns (x, scaled residual norm, iterations = V-cycles, per
+    case as an int array)."""
     top = levels[0]
     notb = top.notb
     dinv2 = top.dinv * top.dinv
@@ -513,16 +577,22 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
 
     x = _each(torch.zeros_like, rhs)
     hist = deque(maxlen=_GCR_K)
-    rn, rn_prev = snorm(rhs), None
+    rn = rn_prev = snorm(rhs)
+    its = np.zeros(rn.numel(), np.int64)
     it = 0
     while it < maxiter:
+        # every case still going has run all ``it`` iterations
         go = rn > tol_abs
         if it >= 8:
             # exit at the float32 floor: past the slow start (~0.97 per
             # iteration on hard fields), an iteration must gain 0.5%
             go = go & (rn < 0.995 * rn_prev)
-        if not bool(go):
+        if active is not None:
+            go = go & active
+        going = _host(go)
+        if not going.any():
             break
+        its += going
         r = (rhs - _apply_lap(top.planes, x)) * notb
         z = vcycle(levels, r, _each(torch.zeros_like, x)) * notb
         q = _apply_lap(top.planes, z) * notb
@@ -534,11 +604,14 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
         inv = torch.where(nrm2 > 0, torch.rsqrt(nrm2 + 1e-38), 0.)
         z, q = z * inv, q * inv
         alpha = sdot(r, q)
-        x = x + alpha * z
+        x = _keep(go, x + alpha * z, x)
         hist.append((z, q))
-        rn_prev, rn = rn, snorm((rhs - _apply_lap(top.planes, x)) * notb)
+        rn_new = snorm((rhs - _apply_lap(top.planes, x)) * notb)
+        rn_prev, rn = _keep(go, rn, rn_prev), _keep(go, rn_new, rn)
+        if _is_batch(x):
+            active = go
         it += 1
-    return x, rn, it
+    return x, rn, its
 
 
 # ---- refined solve -------------------------------------------------------------
@@ -568,11 +641,13 @@ def _solve_refined_core(cond: torch.Tensor, bmask: torch.Tensor,
 
 def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
             labels: np.ndarray, k: int, tol: float, maxcycles: int,
-            u0=None) -> Tuple[torch.Tensor, float, int, int]:
+            u0=None):
     """The float64 refinement of the potential from the TRUE planes
     ``planes_t``, each pass a GCR solve over ``levels``, from ``u0`` (by
-    default the cold start); the fields are tensors on one device or row
-    blocks. Returns (potential f32, rrel, refinement passes, V-cycles)."""
+    default the cold start); the fields are tensors on one device, row
+    blocks, or a batch (``bvals`` then (C, nrow, ncol)). Returns
+    (potential f32, rrel, refinement passes, V-cycles): numbers, or for a
+    batch arrays of one per case."""
     num = k + 1
     top = levels[0]
     planes_t64 = planes_t.to(torch.float64)
@@ -581,6 +656,7 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
     u0_cold = _each(lambda m, v: torch.where(m, v, 500.), bmask, bvals)
     if u0 is None:
         u0 = u0_cold
+    batch = _is_batch(u0_cold)
 
     def resid(u):
         return -_apply_lap(planes_t64, u) * notb64
@@ -594,8 +670,11 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
     # convergence is judged against the COLD start's residual, so tol and
     # rrel (and the 5e-3 fallback threshold) mean the same with a warm
     # start
-    scale = float(scaled_norm(resid(u0_cold.to(torch.float64)))) + 1e-30
+    scale = _host(scaled_norm(resid(u0_cold.to(torch.float64)))) + 1e-30
     target = tol * scale
+    # the floor of each pass's GCR tolerance: a number, or per case
+    floor = torch.as_tensor(0.5 * target, device=u0_cold.device).view(
+        -1, 1, 1) if batch else 0.5 * float(target[0])
     lev_target = 1e-4  # island level-error estimate, potential units
     if k:
         sound = torch.as_tensor(island_sound_mask(labels, num),
@@ -609,34 +688,52 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
         return island_sum(r, top.seg) * top.zaz_inv * sound
 
     u = u0.to(torch.float64)
-    lev = float('inf')
-    rn, best, stall, passes, cycles = scale, scale, 0, 0, 0
+    n = scale.shape[0]
+    lev = np.full(n, np.inf)
+    rn, best = scale.copy(), scale.copy()
+    stall, passes, cycles = (np.zeros(n, np.int64) for _ in range(3))
     # each pass: one GCR solve of the correction in float32, then the
     # outer island correction over sound islands, then the float64
-    # residual; exit on convergence, on the pass budget, or once no pass
-    # in the last 3 set a new best (<= 0.9x) residual (the outer
-    # refinement converges non-monotonically on east-strip fields)
-    while passes < _REFINE_PASSES and (rn > target or lev > lev_target) \
-            and stall < 3:
+    # residual; a case exits on convergence, on the pass budget, or once
+    # no pass in its last 3 set a new best (<= 0.9x) residual (the outer
+    # refinement converges non-monotonically on east-strip fields). A
+    # batch runs while any case goes on, a finished case's potential
+    # kept (:func:`_keep`); one host read a pass, for every case.
+    while True:
+        going = (passes < _REFINE_PASSES) & (
+            (rn > target) | (lev > lev_target)) & (stall < 3)
+        if not going.any():
+            break
+        active = torch.as_tensor(going, device=u.device).view(-1, 1, 1) \
+            if batch else None
         r = resid(u)
-        tol_abs = torch.clamp(0.02 * scaled_norm(r), min=0.5 * target)
+        tol_abs = torch.clamp(0.02 * scaled_norm(r), min=floor)
         delta, _, its = _gcr_solve(levels, r.to(torch.float32), maxcycles,
-                                   tol_abs.to(torch.float32))
+                                   tol_abs.to(torch.float32), active)
         cycles += its
-        u = u + (delta * top.notb).to(torch.float64)
+        u_new = u + (delta * top.notb).to(torch.float64)
         if k:
-            u = u + _spread(island_coeff(resid(u)), top.seg.labels) * notb64
+            u_new = u_new + _spread(island_coeff(resid(u_new)),
+                                    top.seg.labels) * notb64
+        u = _keep(active, u_new, u)
         r = resid(u)
-        lev_t = island_coeff(r).abs().max() if k else \
-            torch.zeros((), dtype=torch.float64, device=r.device)
-        rn, lev = torch.stack([scaled_norm(r), lev_t]).tolist()
-        stall = 0 if rn < 0.9 * best else stall + 1
-        best = min(best, rn)
-        passes += 1
+        lev_t = _island_max(island_coeff(r).abs(), top.seg) if k else \
+            torch.zeros(n, dtype=torch.float64, device=u0_cold.device)
+        rn_t, lev_t = torch.stack([scaled_norm(r).reshape(-1),
+                                   lev_t.reshape(-1)]).cpu().numpy()
+        rn = np.where(going, rn_t, rn)
+        lev = np.where(going, lev_t, lev)
+        stall = np.where(going, np.where(rn < 0.9 * best, 0, stall + 1),
+                         stall)
+        best = np.minimum(best, rn)
+        passes += going
 
     out = _each(lambda m, v, a: torch.where(m, v.to(torch.float64), a).to(
         torch.float32), bmask, bvals, u)
-    return out, rn / scale, passes, cycles
+    rrel = rn / scale
+    if batch:
+        return out, rrel, passes, cycles
+    return out, float(rrel[0]), int(passes[0]), int(cycles[0])
 
 
 def solve_potential_refined(conductivity, bmask, bvals, tol: float = 1e-7,
@@ -657,14 +754,7 @@ def solve_potential_refined(conductivity, bmask, bvals, tol: float = 1e-7,
     ``init`` optionally warm-starts the refinement (non-finite values
     are replaced). ``stats``, a dict, receives ``passes`` (refinement
     passes) and ``vcycles``."""
-    if torch.is_tensor(conductivity):
-        cond = conductivity.to(torch.float32)
-    else:
-        if device is None:
-            raise ValueError('solve_potential_refined: a numpy '
-                             'conductivity needs an explicit device=')
-        cond = torch.as_tensor(np.asarray(conductivity, np.float32),
-                               device=torch.device(device))
+    cond = _on_device(conductivity, device, 'solve_potential_refined')
     bmask = torch.as_tensor(bmask, device=cond.device).to(torch.bool)
     bvals = torch.as_tensor(bvals, device=cond.device).to(torch.float32)
     labels, k = island_labels((cond > 0).cpu().numpy(),
@@ -674,3 +764,45 @@ def solve_potential_refined(conductivity, bmask, bvals, tol: float = 1e-7,
     if stats is not None:
         stats.update(passes=passes, vcycles=cycles)
     return pot, rrel
+
+
+def solve_potential_refined_batch(conductivities, bmask, bvals,
+                                  tol: float = 1e-7, maxcycles: int = 60,
+                                  device=None, stats=None):
+    """The refined solve of C conductivity fields of one grid and one
+    track direction, as one batch: every operation of a V-cycle, a GCR
+    iteration and a refinement pass runs once for all C cases.
+
+    The semantics of the JAX package's ``_solve_refined_batch_jit`` (a
+    ``vmap`` of the single solve): each case runs its own loops and exit
+    tests, a finished case is held while the others go on. A case's
+    answer differs from its single solve by float32 reduction-order
+    noise only: its islands keep their own sums, in the single solve's
+    order (:func:`island_sum`), but the stencil sums run over a larger
+    tensor.
+
+    ``conductivities``: a (C, nrow, ncol) tensor, a sequence of such
+    fields (tensors or numpy), solved on their device, or numpy on
+    ``device``, which it then requires. ``bmask`` and ``bvals`` are
+    shared. Returns (potentials float32 (C, nrow, ncol) tensor, rrel
+    float64 (C,) numpy). ``stats``, a dict, receives per-case lists
+    ``passes`` and ``vcycles``."""
+    if torch.is_tensor(conductivities):
+        cond = conductivities.to(torch.float32)
+    else:
+        fields = list(conductivities)
+        dev = fields[0].device if torch.is_tensor(fields[0]) else device
+        cond = torch.stack([_on_device(c, dev,
+                                       'solve_potential_refined_batch')
+                            for c in fields])
+    n_cases = cond.shape[0]
+    bmask = torch.as_tensor(bmask, device=cond.device).to(torch.bool)
+    bvals = torch.as_tensor(bvals, device=cond.device).to(torch.float32)
+    labels, k = batch_island_labels((cond > 0).cpu().numpy(),
+                                    bmask.cpu().numpy())
+    pots, rrel, passes, cycles = _solve_refined_core(
+        cond, bmask, bvals.expand(n_cases, -1, -1), labels, k, tol,
+        maxcycles)
+    if stats is not None:
+        stats.update(passes=passes.tolist(), vcycles=cycles.tolist())
+    return pots, rrel

@@ -19,9 +19,12 @@ tests/test_torch_potential.py, and by it against a dense oracle):
   neighbour filtering (ssrs/movmodel.py:66-79) swaps the facs of the
   ``(-1, 0)`` and ``(-1, -1)`` edges.
 
-The legacy row-normalized multigrid entry points of the JAX module
-(``solve_potential``, ``solve_potential_for_direction``, ``'mg'``) are
-not ported (ROADMAP.md); the solver is ``lap.solve_potential_refined``.
+It also holds the legacy entry points of the JAX module,
+:func:`solve_potential` and :func:`solve_potential_for_direction`: the
+row-normalized multigrid of ``multigrid.py`` (``potential_solver='mg'``),
+which reaches the float32-representable fixed point of ``I - P``. For
+answers to the float64 direct solve's accuracy on hard fields, the
+``Simulator``'s default is ``lap.solve_potential_refined``.
 """
 
 from __future__ import annotations
@@ -62,14 +65,26 @@ def _shift(x: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
     return xpad[..., dr + 1:dr + 1 + nrow, dc + 1:dc + 1 + ncol]
 
 
+def _on_device(conductivity, device, name: str) -> torch.Tensor:
+    """A conductivity (a tensor, or numpy with an explicit ``device``) as
+    float32 on its device."""
+    if torch.is_tensor(conductivity):
+        return conductivity.to(torch.float32)
+    if device is None:
+        raise ValueError(f'{name}: a numpy conductivity needs an explicit '
+                         'device=')
+    return torch.as_tensor(np.asarray(conductivity, np.float32),
+                           device=torch.device(device))
+
+
 def weight_planes(conductivity) -> torch.Tensor:
     """Unnormalized edge weights ``W_d = hm(cond_i, cond_j) / fac_d`` for
     the eight neighbours in ``_DIRS`` order, shape (8, nrow, ncol)
     float32, zero for out-of-grid neighbours, on the conductivity's
-    device. The row-normalized planes of :func:`transition_planes` are
+    device; (8, C, nrow, ncol) for a batch of C fields. The row-normalized planes of :func:`transition_planes` are
     ``W / sum_d W``."""
     cond = torch.as_tensor(conductivity, dtype=torch.float32)
-    nrow, ncol = cond.shape
+    nrow, ncol = cond.shape[-2:]
     rows = torch.arange(nrow, device=cond.device)[:, None]
     cols = torch.arange(ncol, device=cond.device)[None, :]
     safe_c = torch.where(cond == 0., 1., cond)
@@ -98,3 +113,43 @@ def transition_planes(conductivity) -> torch.Tensor:
     """
     w = weight_planes(conductivity)
     return w / torch.sum(w, dim=0, keepdim=True)
+
+
+def _apply_p(p_planes: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """(P u)(r, c) = sum_d P_d(r, c) * u(r+dr, c+dc): one pad and eight
+    slices, in ``_DIRS`` order."""
+    nrow, ncol = u.shape[-2:]
+    upad = F.pad(u, (1, 1, 1, 1))
+    out = torch.zeros_like(u)
+    for k, m in enumerate(_DIRS):
+        dr, dc = int(NEIGHBOR_DELTAS[m, 0]), int(NEIGHBOR_DELTAS[m, 1])
+        out = out + p_planes[k] * upad[..., dr + 1:dr + 1 + nrow,
+                                       dc + 1:dc + 1 + ncol]
+    return out
+
+
+def solve_potential(conductivity, bmask, bvals, tol: float = 1e-6,
+                    maxiter: int = 0, device=None, stats=None):
+    """The legacy row-normalized multigrid solve of the directional
+    potential (``multigrid.solve_potential_mg``), ``maxiter`` V-cycles at
+    most (<= 0: 200). A tensor conductivity is solved on its device; a
+    numpy one on ``device``, which it then requires. Returns (potential
+    float32 (nrow, ncol) tensor, residual norm float); ``stats``, a dict,
+    receives ``vcycles``."""
+    from .multigrid import solve_potential_mg
+    maxcycles = maxiter if maxiter > 0 else 200
+    return solve_potential_mg(conductivity, bmask, bvals, tol=tol,
+                              maxcycles=maxcycles, device=device,
+                              stats=stats)
+
+
+def solve_potential_for_direction(conductivity, move_dirn: float,
+                                  tol: float = 1e-6, maxiter: int = 0,
+                                  device=None, stats=None):
+    """:func:`solve_potential` with the directed boundary conditions of
+    ``move_dirn`` (``Simulator.get_directional_potential``,
+    ssrs/simulator.py:259-288, without the file cache)."""
+    from .boundary import boundary_masks
+    bmask, bvals = boundary_masks(move_dirn, tuple(conductivity.shape))
+    return solve_potential(conductivity, bmask, bvals, tol=tol,
+                           maxiter=maxiter, device=device, stats=stats)

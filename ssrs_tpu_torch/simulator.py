@@ -4,8 +4,9 @@ The PyTorch counterpart of ``ssrs_tpu/simulator.py``: uniform, snapshot
 and seasonal mode (the last two from WindToolKit winds, interpolated to
 the grid on the host), the ``fluidflow`` run, with the directional
 potential from the refined solver on the run's device
-(``potential_solver='auto'``, the default, or ``'refined'``) or from the
-host float64 direct solve (``'direct'``, ``'dense'``), and the directed
+(``potential_solver='auto'``, the default, or ``'refined'``), from the
+host float64 direct solve (``'direct'``, ``'dense'``) or from the legacy
+multigrid (``'mg'``, ``'multigrid'``), and the directed
 random walk (``'drw'``, no potential); thermal realizations
 (``thermals_realization_count``); the wind-direction sweep
 (``simulate_direction_sweep``); recorded trajectories for runs up to
@@ -27,8 +28,13 @@ counts-only run shards its agents over the mesh (``_run_large``,
 ``parallel/mesh.py``) and the multi-case driver spreads its cases over
 it; recorded runs, the fields and the solves stay on the first device.
 
-Every configuration not ported yet raises ``NotImplementedError`` naming
-its item in ROADMAP.md.
+The multi-case prep can solve its potentials in batches
+(``potential_batch > 1``, ``potential/lap.py``'s
+``solve_potential_refined_batch``); ``potential_solver='mg'`` is the JAX
+package's legacy multigrid; ``track_tail_bucket='auto'`` its self-tuned
+end of compaction. The JAX package's engine knobs (``track_step_impl``
+``'xla'`` or ``'pallas'``, ``track_presence_impl`` other than ``'auto'``)
+raise ``NotImplementedError``: the port has one engine.
 """
 from __future__ import annotations
 
@@ -67,23 +73,15 @@ from .utils import get_seasonal_datetimes_list, makedir_if_not_exists
 
 
 def _check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError for a configuration not ported yet."""
-    todo = 'ROADMAP.md, "Modules still to port"'
+    """Raise ValueError for an unknown solver, and NotImplementedError for
+    the JAX package's engine knobs, which select a TPU implementation of
+    the same function (the port has one engine)."""
     solver = (cfg.potential_solver or 'auto').lower()
-    if solver in ('mg', 'multigrid'):
-        raise NotImplementedError(
-            f'potential_solver={cfg.potential_solver!r}: the legacy '
-            "row-normalized multigrid is not ported; use 'auto' (the "
-            f"refined device solver) or 'direct' ({todo}: not ported, on "
-            'purpose)')
-    if solver not in ('auto', 'refined', 'direct', 'dense'):
+    if solver not in ('auto', 'refined', 'direct', 'dense', 'mg',
+                      'multigrid'):
         raise ValueError(
             f'potential_solver={cfg.potential_solver!r}: expected auto, '
-            'refined, direct or dense')
-    if int(cfg.potential_batch) > 1:
-        raise NotImplementedError(
-            f'potential_batch={cfg.potential_batch}: the batched multi-case '
-            f'solve is not ported ({todo}: not ported, on purpose)')
+            'refined, direct, dense, mg or multigrid')
     if str(cfg.track_step_impl) not in ('auto', 'fused') or \
             str(cfg.track_presence_impl) != 'auto':
         raise NotImplementedError(
@@ -441,21 +439,104 @@ class Simulator(PlottingMixin, Config):
                                                            real_id)
         if state is not None:
             return state
+        return self._solve_one(updraft, fname, id_str)
+
+    def _solve_one(self, updraft, fname, id_str):
+        """The handle of one uncached solve."""
         start_time = time.time()
         handle = self._begin_potential_solve(updraft)
         handle[-1]['seconds'] = time.time() - start_time
         return ('solve', handle, fname, id_str, start_time)
 
+    def _potential_batch_cap(self) -> int:
+        """How many uncached refined solves one batched solve may carry
+        (``Config.potential_batch``: 0 = auto, which is off as in the JAX
+        package; 1 = off; n > 1 = at most n, and at most what fits
+        ``_BATCH_MEMORY_SHARE`` of the run's device's free memory at
+        ``_BATCH_BYTES_PER_CELL`` a case). 1 for another solver than the
+        refined one. The JAX package's envelope, 3.5e9 bytes at 200 a
+        cell, is the TPU's."""
+        pb = int(self.potential_batch)
+        if pb <= 1 or (self.potential_solver or 'auto').lower() not in (
+                'auto', 'refined'):
+            return 1
+        cells = int(np.prod(self.gridsize))
+        budget = _BATCH_MEMORY_SHARE * _free_bytes(self.device)
+        return max(1, min(pb, int(budget // (cells *
+                                             _BATCH_BYTES_PER_CELL))))
+
     def begin_directional_potentials(self, items):
         """Multi-case prep: cache-check every ``(updraft, case_id,
         real_id)`` item and solve the uncached ones, one
         :meth:`finish_directional_potential` handle per item, in order.
-        The JAX package can group the uncached solves into batched
-        programs here (``potential_batch > 1``, which the port refuses:
-        ROADMAP.md, "Not ported, on purpose"), so every item takes the
-        single solve."""
-        return [self.begin_directional_potential(updraft, case_id, real_id)
-                for updraft, case_id, real_id in items]
+
+        With a batch cap above 1 (:meth:`_potential_batch_cap`, rounded
+        down to a power of two),
+        the uncached items go in groups through
+        ``solve_potential_refined_batch`` on the run's device, as in the
+        JAX package (``ssrs_tpu/simulator.py:389-432``): a group holds
+        the cap's or the next power of two at or above the items left,
+        whichever is fewer, and a lone remainder takes the single solve.
+        The port pads no group. Each item of a group finishes through its
+        own handle and the residual net, so a case that stalls inside a
+        batch falls back to the direct solve alone. Its ``potential``
+        record adds ``batch`` (the group's size) and ``group_seconds``;
+        its ``seconds`` are the group's wall over the group's size, so
+        the records still sum to the prep's time."""
+        cap = self._potential_batch_cap()
+        if cap <= 1:
+            return [self.begin_directional_potential(updraft, case_id,
+                                                     real_id)
+                    for updraft, case_id, real_id in items]
+        cap = 1 << (cap.bit_length() - 1)
+        states = [None] * len(items)
+        todo = []
+        for i, (updraft, case_id, real_id) in enumerate(items):
+            state, fname, id_str = self._check_potential_cache(case_id,
+                                                               real_id)
+            if state is not None:
+                states[i] = state
+            else:
+                todo.append((i, updraft, fname, id_str))
+        pos = 0
+        while pos < len(todo):
+            n_left = len(todo) - pos
+            if n_left == 1:
+                i, updraft, fname, id_str = todo[pos]
+                states[i] = self._solve_one(updraft, fname, id_str)
+                break
+            group = todo[pos:pos + min(cap, 1 << (n_left - 1).bit_length())]
+            for (i, _, _, _), state in zip(group, self._solve_group(group)):
+                states[i] = state
+            pos += len(group)
+        return states
+
+    def _solve_group(self, group):
+        """The handles of one batched refined solve of ``group``'s
+        ``(index, updraft, fname, id_str)`` items."""
+        from .potential import solve_potential_refined_batch
+        start_time = time.time()
+        conds = torch.stack([torch.as_tensor(g[1], dtype=torch.float32,
+                                             device=self.device)
+                             for g in group])
+        bmask, bvals = boundary_masks(self.track_direction,
+                                      tuple(self.gridsize))
+        maxiter = self.potential_maxiter if self.potential_maxiter > 0 \
+            else 60
+        stats = {}
+        pots, rrels = solve_potential_refined_batch(
+            conds, bmask, bvals, tol=float(self.potential_tol),
+            maxcycles=maxiter, stats=stats)
+        wall = time.time() - start_time
+        n = len(group)
+        return [('solve', ('refined', (conds[j], pots[j], float(rrels[j])),
+                           {**_solve_info('refined', rrel=float(rrels[j]),
+                                          passes=stats['passes'][j],
+                                          vcycles=stats['vcycles'][j]),
+                            'batch': n, 'group_seconds': wall,
+                            'seconds': wall / n}),
+                 fname, id_str, start_time)
+                for j, (_, _, fname, id_str) in enumerate(group)]
 
     def finish_directional_potential(self, state) -> np.ndarray:
         """Materialize a :meth:`begin_directional_potential` handle: read
@@ -504,9 +585,11 @@ class Simulator(PlottingMixin, Config):
     def _prepare_potentials(self, items, pairs: bool = False):
         """Potentials for a list of ``(case_id, real_id, updraft)`` work
         items, in order, through :meth:`begin_directional_potentials` and
-        finish in windows of the JAX package's bounded finish depth (3, or
-        1 past 4096^2): at most that many unfinished solves are held at
-        once.
+        finish in windows: of ``4 * cap`` items where batched solves apply
+        (the refined solver, a batch cap above 1 and more than one item,
+        as in ``ssrs_tpu/simulator.py:496-506``), else of the JAX
+        package's bounded finish depth (3, or 1 past 4096^2). At most a
+        window's unfinished solves are held at once.
 
         With ``pairs=True`` every element is ``(host, device-or-None)``
         (see :meth:`_finish_directional_potential_pair`); otherwise
@@ -515,6 +598,9 @@ class Simulator(PlottingMixin, Config):
                   else self.finish_directional_potential)
         out = []
         depth = 3 if int(np.prod(self.gridsize)) <= 4096 * 4096 else 1
+        cap = self._potential_batch_cap()
+        if cap > 1 and len(items) > 1:
+            depth = 4 * cap
         for w0 in range(0, len(items), depth):
             handles = self.begin_directional_potentials(
                 [(upd, cid, rid) for cid, rid, upd in items[w0:w0 + depth]])
@@ -530,7 +616,10 @@ class Simulator(PlottingMixin, Config):
         returns the handle :meth:`_finish_potential_solve_pair` reads,
         ``(kind, payload, info)``. ``'auto'`` is the refined solver on the
         run's device (the JAX package's default); ``'direct'`` and
-        ``'dense'`` the host float64 solve."""
+        ``'dense'`` the host float64 solve; ``'mg'`` and ``'multigrid'``
+        the legacy multigrid on the run's device, at most
+        ``potential_maxiter`` V-cycles (<= 0: 200), which takes no
+        residual net (``ssrs_tpu/simulator.py:539-546``)."""
         solver = (self.potential_solver or 'auto').lower()
         cond = torch.as_tensor(conductivity, dtype=torch.float32,
                                device=self.device)
@@ -538,6 +627,16 @@ class Simulator(PlottingMixin, Config):
             return ('done', solve_potential_direct(cond.cpu().numpy(),
                                                    self.track_direction),
                     _solve_info('direct'))
+        if solver in ('mg', 'multigrid'):
+            from .potential import solve_potential_for_direction
+            maxiter = self.potential_maxiter if self.potential_maxiter > 0 \
+                else 200
+            stats = {}
+            pot, resid = solve_potential_for_direction(
+                cond, self.track_direction, tol=float(self.potential_tol),
+                maxiter=maxiter, stats=stats)
+            return ('done', pot.cpu().numpy(),
+                    {**_solve_info('mg', **stats), 'residual_norm': resid})
         from .potential import solve_potential_refined
         bmask, bvals = boundary_masks(self.track_direction,
                                       tuple(self.gridsize))
@@ -995,6 +1094,24 @@ class Simulator(PlottingMixin, Config):
     def _get_uniform_id(self):
         return (f's{int(self.uniform_windspeed)}'
                 f'd{int(self.uniform_winddirn)}')
+
+
+# Simulator._potential_batch_cap: the refined solve's peak device memory
+# a cell and case, above what was allocated before it, and the share of
+# the device's free memory a group may take. Groups of 1, 2, 4 and 8 at
+# 500x600, 800x600 and 1000x1000 peaked at 288-356 bytes a cell and case,
+# the single solve the most (scripts/torch_batch_crossover.py on an
+# NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md); 360 covers them
+_BATCH_BYTES_PER_CELL = 360
+_BATCH_MEMORY_SHARE = 0.5
+
+
+def _free_bytes(device: torch.device) -> int:
+    """The free memory of ``device``: the card's, or the host's available
+    memory for the CPU."""
+    if device.type == 'cuda':
+        return torch.cuda.mem_get_info(device)[0]
+    return os.sysconf('SC_AVPHYS_PAGES') * os.sysconf('SC_PAGE_SIZE')
 
 
 def _solve_info(solver: str, rrel=None, passes: int = 0,

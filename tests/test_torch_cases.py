@@ -294,6 +294,27 @@ def test_cases_compacting_early_death_dirps_valid_and_stacked_tables():
     assert int(presence[1].sum()) >= int(valid.sum()) * (tp.burnin + 1)
 
 
+def test_cases_compacting_accepts_auto_tail(monkeypatch):
+    """``tail_bucket='auto'`` on the cases driver: each case runs its own
+    rule; with a round trip of 0 s no case stops compacting early, so the
+    maps are those of tail_bucket=0."""
+    _, tp = _params(1, 1.0, nsteps=200, burnin=4)
+    tables = _case_tables() + [None]
+    rng = np.random.default_rng(4)
+    starts = np.stack([rng.integers(2, GRID[0] - 2, 700),
+                       rng.integers(2, GRID[1] - 2, 700)],
+                      axis=1).astype(np.int32)
+    want = tsim.simulate_presence_cases_compacting(
+        tp, tables, starts, _gens(4), **CASES_KW)
+    monkeypatch.setattr(tsim, '_dispatch_overhead', lambda device: 0.)
+    monkeypatch.setattr(tsim, '_PER_SLOT', {})
+    got = tsim.simulate_presence_cases_compacting(
+        tp, tables, starts, _gens(4), tail_bucket='auto', **CASES_KW)
+    assert torch.equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert tsim._PER_SLOT[(tp, CASES_KW['chunk'], 'cpu')] > 0
+
+
 def test_cases_compacting_rejects_bad_starts():
     _, tp = _params(1, 1.0, nsteps=50)
     tables = _case_tables(cases=2)

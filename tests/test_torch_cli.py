@@ -125,6 +125,25 @@ def test_refused_engine_knobs_fail_before_any_output(tmp_path, knob):
     assert not out.exists()
 
 
+@pytest.mark.parametrize('knob', [
+    dict(track_tail_bucket='auto'), dict(potential_solver='mg'),
+    dict(potential_batch=4)])
+def test_run_takes_the_solver_options(tmp_path, knob):
+    """The options the port once refused run from a JSON on their own:
+    the self-tuned tail, the legacy multigrid, a batch cap (one case, so
+    the single solve)."""
+    out = tmp_path / 'out'
+    cfg = _write(tmp_path / 'options.json', run_name='cli_options',
+                 out_dir=str(out), **TINY, track_max_steps=120,
+                 track_pkl_budget=0, **knob)
+    assert main(['run', cfg, '--no-plots', '--device', 'cpu']) == 0
+    counts, summary = _outputs(out, 'cli_options')
+    assert counts.sum() >= TINY['track_count'] and summary.max() == 1.0
+    with open(out / 'cli_options' / 'cli_options.json') as fobj:
+        saved = json.load(fobj)
+    assert all(saved[k] == v for k, v in knob.items())
+
+
 def test_run_defaults_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('this machine has a card: the run would go to it')

@@ -486,6 +486,55 @@ def test_vcycle_on_card_reads_nothing_back(cuda):
     assert torch.isfinite(out).all()
 
 
+def _batch_fields():
+    """Two hard fields, a speckle field and a smooth one without islands,
+    64x80."""
+    y = np.linspace(0, 3 * np.pi, 64)[:, None]
+    x = np.linspace(0, 4 * np.pi, 80)[None, :]
+    smooth = (1.0 + 0.5 * np.sin(x) * np.cos(y)).astype(np.float32)
+    return [conductivity_hard((64, 80), 0), conductivity_hard((64, 80), 7),
+            speckle(np.random.default_rng(3), (64, 80), 0.55), smooth]
+
+
+def test_batched_solve_on_card(cuda):
+    """The batched refined solve on the card: every case converged (rrel,
+    the float64 interior residual, range, exact boundary), bitwise equal
+    on a second solve, within the JAX package's bounds of the direct
+    solve (0.05 for the batch, tests/test_potential.py; 1.0 for the
+    speckle field, as ``test_refined_solve_on_card_matches_cpu`` holds
+    the fuzz fields), and so within twice that of the batch on the CPU.
+    (Alone on the card the speckle field stops at rrel 2.5e-4, 1.99 from
+    direct; in the batch it converges.)"""
+    from ssrs_tpu_torch.potential import (boundary_masks,
+                                          solve_potential_direct,
+                                          solve_potential_refined_batch)
+    from ssrs_tpu_torch.potential.direct import interior_residual
+    fields = _batch_fields()
+    bounds = (0.05, 0.05, 1.0, 0.05)
+    bmask, bvals = boundary_masks(0., (64, 80))
+    conds = torch.from_numpy(np.stack(fields)).to(cuda)
+    stats = {}
+    pots, rrels = solve_potential_refined_batch(conds, bmask, bvals,
+                                                stats=stats)
+    assert pots.device.type == 'cuda' and pots.shape == (4, 64, 80)
+    again, rrels2 = solve_potential_refined_batch(conds.clone(), bmask,
+                                                  bvals)
+    assert torch.equal(pots, again)
+    np.testing.assert_array_equal(rrels, rrels2)
+    cpu, _ = solve_potential_refined_batch(fields, bmask, bvals,
+                                           device='cpu')
+    assert len(stats['vcycles']) == 4 and min(stats['passes']) > 0
+    for i, (cond, bound) in enumerate(zip(fields, bounds)):
+        pot = pots[i].cpu().numpy()
+        assert rrels[i] < 1e-5
+        assert interior_residual(pot, cond, 0.) <= 2e-4
+        assert pot.min() >= -1e-3 and pot.max() <= 1000. + 1e-3
+        np.testing.assert_array_equal(pot[bmask], bvals[bmask])
+        want = solve_potential_direct(cond, 0.)
+        assert np.abs(pot - want).max() < bound
+        assert np.abs(pot - cpu[i].numpy()).max() < 2 * bound
+
+
 @pytest.mark.parametrize('k', [0, 1, 3])
 @pytest.mark.parametrize('nu', [1.0, 0.0])
 def test_kernels_without_a_table_match_plain_on_card(cuda, k, nu):

@@ -152,10 +152,78 @@ def test_sharded_compacting_deterministic_and_counts_every_start():
     assert int(small[GRID[0] // 2:, :].sum()) > 0
 
 
-def test_sharded_compacting_tail_bucket_auto_raises():
-    with pytest.raises(NotImplementedError, match='auto'):
-        tpar.simulate_presence_sharded_compacting(
-            _params(), _starts(64), 1, mesh=CPU4, tail_bucket='auto')
+def _spread_starts(n):
+    """Starts over every row: the agents reach the far edge over many
+    chunks, so each shard compacts several times."""
+    rng = np.random.default_rng(n)
+    return np.stack([rng.integers(2, GRID[0] - 2, n),
+                     rng.integers(2, GRID[1] - 2, n)], axis=1).astype(np.int32)
+
+
+def _auto_rule(monkeypatch, rtt, key=None, per_slot=None):
+    """``tail_bucket='auto'`` with a round trip of ``rtt`` seconds and, for
+    ``key``, a per-slot estimate already made."""
+    monkeypatch.setattr(tsim, '_dispatch_overhead', lambda device: rtt)
+    monkeypatch.setattr(tsim, '_PER_SLOT',
+                        {} if key is None else {key: per_slot})
+
+
+AUTO_KW = dict(chunk=16, min_bucket=64)
+
+
+def test_sharded_compacting_tail_bucket_auto_raises(monkeypatch):
+    """``'auto'`` runs on the sharded driver (it once raised). With a
+    round trip of 0 s it never stops compacting early: the bits of
+    tail_bucket=0."""
+    updraft, potential = _fields()
+    params = _params(nsteps=300)
+    kw = dict(updraft=updraft, potential=potential, mesh=CPU4, **AUTO_KW)
+    want = tpar.mesh.shard_maps_compacting(params, _spread_starts(4096), 7,
+                                      tail_bucket=0, **kw)
+    _auto_rule(monkeypatch, 0.)
+    got = tpar.mesh.shard_maps_compacting(params, _spread_starts(4096), 7,
+                                     tail_bucket='auto', **kw)
+    assert torch.equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert tsim._PER_SLOT[(params, 16, 'cpu')] > 0
+
+
+def test_sharded_auto_tail_stops_each_shard_at_its_first_bucket(
+        monkeypatch):
+    """A round trip longer than every round, with a per-slot cost already
+    estimated: each shard stops compacting at the first bucket it packs,
+    so its map is the single-device driver's on its block with that
+    bucket as tail_bucket."""
+    updraft, potential = _fields()
+    params = _params(nsteps=300)
+    fields = dict(updraft=updraft, potential=potential, **AUTO_KW)
+    seed = 7
+    firsts = []
+    real = tsim._compact_body
+
+    def spy(state, m):
+        firsts.append(m)
+        return real(state, m)
+
+    blocks = _shards(4096, 4)
+    blocks = [(_spread_starts(4096)[i * 1024:(i + 1) * 1024], va)
+              for i, (_, va) in enumerate(blocks)]
+    for i, (st, va) in enumerate(blocks):
+        monkeypatch.setattr(tsim, '_compact_body', spy)
+        del firsts[:]
+        tsim.simulate_presence_compacting(params, st, _gen(fold_in(seed, i)),
+                                          valid=va, tail_bucket=0, **fields)
+        blocks[i] = (st, va, firsts[0])
+    monkeypatch.setattr(tsim, '_compact_body', real)
+    _auto_rule(monkeypatch, 1e9, (params, 16, 'cpu'), 1e-12)
+    maps, steps = tpar.mesh.shard_maps_compacting(
+        params, _spread_starts(4096), seed, mesh=CPU4, tail_bucket='auto',
+        **fields)
+    for i, (st, va, first) in enumerate(blocks):
+        want, want_steps = tsim.simulate_presence_compacting(
+            params, st, _gen(fold_in(seed, i)), valid=va, tail_bucket=first,
+            **fields)
+        assert torch.equal(maps[i], want) and steps[i] == want_steps
 
 
 def test_sharded_plain_shards_are_simulate_presence():

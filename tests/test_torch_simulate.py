@@ -116,11 +116,14 @@ def test_bucket_ladder_matches(n_alive, min_bucket):
 
 
 def test_tail_bucket_knob():
-    assert tsim._norm_tail_bucket(0, 1024) == 1024
+    """The JAX package's normalization: ``'auto'`` starts as the
+    ``min_bucket`` switch."""
+    for tb in (0, -5, 4096, 'auto', 100):
+        assert tsim._norm_tail_bucket(tb, 1024) == \
+            jsim._norm_tail_bucket(tb, 1024)
+    assert tsim._norm_tail_bucket('auto', 1024) == 1024
     assert tsim._norm_tail_bucket(-5, 1024) == -1
     assert tsim._norm_tail_bucket(4096, 1024) == 4096
-    with pytest.raises(NotImplementedError):
-        tsim._norm_tail_bucket('auto', 1024)
     with pytest.raises(ValueError):
         tsim._norm_tail_bucket(1.5, 1024)
 
@@ -173,3 +176,86 @@ def test_compacting_deterministic():
     assert torch.equal(runs[0][0], runs[1][0])
     assert runs[0][1] == runs[1][1]
     assert int(runs[0][0].sum()) >= 1500 * (tp.burnin + 1)
+
+
+# ---- tail_bucket='auto' ----------------------------------------------------
+
+
+def _spy_compactions(monkeypatch):
+    """Record the bucket of every compaction the drivers make."""
+    buckets = []
+    real = tsim._compact_body
+
+    def spy(state, m):
+        buckets.append(m)
+        return real(state, m)
+
+    monkeypatch.setattr(tsim, '_compact_body', spy)
+    return buckets
+
+
+def _auto_rule(monkeypatch, rtt, key=None, per_slot=None):
+    """``tail_bucket='auto'`` with a round trip of ``rtt`` seconds and, for
+    ``key``, a per-slot estimate already made."""
+    monkeypatch.setattr(tsim, '_dispatch_overhead', lambda device: rtt)
+    monkeypatch.setattr(tsim, '_PER_SLOT',
+                        {} if key is None else {key: per_slot})
+
+
+def _auto_case():
+    up, pot = _fields()
+    tp = tsim.TrackParams(grid_shape=GRID, move_dirn=0., nu=1., memory_k=1,
+                          burnin=4, nsteps=300)
+    kw = dict(updraft=up, potential=pot, chunk=16, min_bucket=64)
+    # starts over every row, so that the agents reach the far edge over
+    # many chunks and the driver compacts several times
+    rng = np.random.default_rng(3)
+    starts = np.stack([rng.integers(2, GRID[0] - 2, 2048),
+                       rng.integers(2, GRID[1] - 2, 2048)],
+                      axis=1).astype(np.int32)
+    return tp, starts, kw
+
+
+def _run(tp, starts, kw, tail):
+    return tsim.simulate_presence_compacting(
+        tp, starts, torch.Generator().manual_seed(4), tail_bucket=tail, **kw)
+
+
+def test_auto_tail_without_round_trip_is_tail_zero(monkeypatch):
+    """A round trip of 0 s never pays for stopping: 'auto' compacts as
+    tail_bucket=0 does, bit for bit, and estimates a per-slot cost."""
+    tp, starts, kw = _auto_case()
+    buckets = _spy_compactions(monkeypatch)
+    want = _run(tp, starts, kw, 0)
+    assert len(buckets) >= 2
+    _auto_rule(monkeypatch, 0.)
+    got = _run(tp, starts, kw, 'auto')
+    assert torch.equal(got[0], want[0]) and got[1] == want[1]
+    assert buckets[:len(buckets) // 2] == buckets[len(buckets) // 2:]
+    assert tsim._PER_SLOT[(tp, 16, 'cpu')] > 0
+
+
+def test_auto_tail_with_long_round_trip_stops_at_first_bucket(monkeypatch):
+    """A round trip longer than every chunk, with a per-slot cost already
+    estimated: compaction stops at the first bucket it packs, so the run
+    is the run whose tail_bucket is that bucket, bit for bit."""
+    tp, starts, kw = _auto_case()
+    buckets = _spy_compactions(monkeypatch)
+    _run(tp, starts, kw, 0)
+    first = buckets[0]
+    del buckets[:]
+    _auto_rule(monkeypatch, 1e9, (tp, 16, 'cpu'), 1e-12)
+    got = _run(tp, starts, kw, 'auto')
+    assert buckets == [first]
+    want = _run(tp, starts, kw, first)
+    assert torch.equal(got[0], want[0]) and got[1] == want[1]
+    # a chunk wall under the round trip says nothing: the estimate stays
+    assert tsim._PER_SLOT[(tp, 16, 'cpu')] == 1e-12
+
+
+def test_dispatch_overhead_is_measured_once(monkeypatch):
+    monkeypatch.setattr(tsim, '_DISPATCH_OVERHEAD', {})
+    rtt = tsim._dispatch_overhead('cpu')
+    assert 0 < rtt < 1
+    assert tsim._dispatch_overhead(torch.device('cpu')) == rtt
+    assert list(tsim._DISPATCH_OVERHEAD) == ['cpu']

@@ -188,10 +188,33 @@ def test_default_device_needs_a_card(tmp_path):
     dict(potential_batch=2),
 ])
 def test_out_of_slice_configs_raise(tmp_path, override):
+    """The JAX package's engine knobs raise: the port has one engine. The
+    solver options once refused here (the legacy multigrid, a batch cap)
+    now run: a multigrid potential within the bounds of its boundary
+    values, a drw run beside 'multigrid', the cap of potential_batch."""
     cfg = ssrs_tpu_torch.Config(out_dir=str(tmp_path),
-                                **{**CONFIG, **override})
-    with pytest.raises(NotImplementedError, match='ROADMAP|engine'):
-        ssrs_tpu_torch.Simulator(cfg, device='cpu')
+                                **{**CONFIG, 'track_count': 256, **override})
+    if 'track_step_impl' in override or 'track_presence_impl' in override:
+        with pytest.raises(NotImplementedError, match='engine'):
+            ssrs_tpu_torch.Simulator(cfg, device='cpu')
+        return
+    sim = ssrs_tpu_torch.Simulator(cfg, device='cpu')
+    if override.get('movement_model') == 'drw':
+        sim.simulate_tracks()
+        counts = sim.get_presence_counts(CASE, 0)
+        assert int(counts.sum()) >= 256
+    elif 'potential_batch' in override:
+        # the config's direct solver solves one case at a time
+        assert sim._potential_batch_cap() == 1
+        sim.potential_solver = 'refined'
+        assert sim._potential_batch_cap() == 2
+    else:
+        pot = sim.get_directional_potential(
+            sim.load_updrafts(CASE, device=False)[0], CASE, 0)
+        assert pot.dtype == np.float32 and np.isfinite(pot).all()
+        assert pot.min() >= -1. and pot.max() <= 1001.
+        rec = sim.timer.records[-1]
+        assert rec['phase'] == 'potential' and rec['solver'] == 'mg'
 
 
 def test_unknown_terrain_layer_raises_value_error(sims):
