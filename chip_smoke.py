@@ -86,7 +86,7 @@ region's presence map again from its ``.pkl`` (one launch of the count
 kernel), and the figures: drawn where matplotlib imports, else ``run``
 without ``--no-plots`` must raise ``ImportError`` before any output.
 
-Several devices, last: a mesh of four entries, every visible card cycled
+Several devices: a mesh of four entries, every visible card cycled
 (four times the one card on a machine with one; a line says how many
 distinct cards). The main run's 100,000 tracks again, counts only, through
 ``Simulator(device=mesh, mesh_devices=4)`` on the cached potential: its
@@ -103,14 +103,33 @@ range, boundary, a bitwise re-solve; its seconds and V-cycles beside the
 single-device solve's) and of the hard field (within 0.05 of direct), no
 field block moving between shards.
 
+Last, the notebooks (``notebooks/*.ipynb``), through the port's public
+surface on the card: terrain_demo's cells (the root imports, the terrain
+chain to the synthetic DEM, the reprojection; slope and aspect of the
+500x600 elevation as card tensors against the cells' CPU values within
+rtol 1e-5 + atol 1e-4; the turbines of the notebook's pandas frame equal
+to those of its columns as a dict) and wtk_demo's (on a stand-in archive
+for 2014: the frame of one timestamp equal to the stand-in's values);
+then every configuration that ssrs_tpu_demo, workshop_cases and
+ssrs_modes assign, read from their JSON, through ``Simulator(config)``
+and ``simulate_tracks()``: demo_wy (300x250, 2,000 recorded tracks) and
+demo_wy_big (100,000 tracks) at their own size, the five workshop cases
+and the three ssrs_modes runs at 100 m (the snapshot and seasonal cases
+on stand-ins for Altamont Pass in 2012 and the README region in 2012 and
+2014). Every case's counts hold the mass checks; demo_wy's ``.pkl``
+recount and, at 600x600, one chunk launch from the case's starts and its
+flush are exact against the plain versions. Each refined solve that ends
+with 1e-5 < rrel <= 5e-3 (inside the Simulator's residual net) is held
+against the host direct solve.
+
 Every phase prints one line; any failure exits non-zero. The last three
 lines are a JSON object with the solver's, the track engine's, the
 count's and the multi-case paths' numbers, one with the kernels' numbers
 and the JSON status line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the package beside it, it exits
-non-zero and prints no result. It imports nothing of JAX, and the port
-takes in no pandas and no requests.
+non-zero and prints no result. It imports nothing of JAX, the port takes
+in no requests, and no pandas before the notebooks' cells import it.
 """
 
 from __future__ import annotations
@@ -125,6 +144,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from datetime import datetime
 
 import numpy as np
 
@@ -270,6 +290,25 @@ MG_HARD_RESID = 7.832
 MG_RESID_SLACK = 1.05
 # the compacting drivers' default min_bucket (agents/simulate.py)
 AUTO_MIN_BUCKET = 1024
+# the notebooks (notebooks/*.ipynb): the configurations each assigns, read
+# from its JSON, at the workshop's 100 m (workshop_cases.ipynb: "RES =
+# 200. # demo resolution (workshop: 100.)"; ssrs_modes.ipynb: "demo
+# resolution; production runs use 100 m"); ssrs_tpu_demo's at its own
+NOTEBOOK_RES = 100.
+NOTEBOOK_RUNS = (
+    ('ssrs_tpu_demo', ('config', 'big')),
+    ('workshop_cases', ('wy_test1', 'wy_test2', 'alt_test1', 'apl_test1',
+                        'apl_test2')),
+    ('ssrs_modes', ('config_uniform', 'config_snapshot', 'config_seasonal')))
+# the run whose .pkl kernel C recounts, and the run at the largest grid,
+# where one chunk launch and its flush are held against the plain versions
+NOTEBOOK_RECOUNT = 'config'
+NOTEBOOK_CHUNK = 'apl_test1'
+# the refined solves that end between these residuals pass the 5e-3 net
+# unconverged (ROADMAP.md section 3, fault 3); each is held against the
+# host direct solve up to this many cells
+STALL_RREL = (RREL_MAX, 5e-3)
+STALL_DIRECT_MAX_CELLS = 600 * 600
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device-memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -1270,11 +1309,14 @@ def _run_table(torch, sim):
 def _chunk_against_plain(torch, sim, label):
     """One CHUNK_T-step launch of the chunk kernel on ``sim``'s own table
     and starts against the plain version from the same state with the
-    same uniforms: the states must be exactly equal. Returns the largest
-    difference of the maps (0), the agents, the live agent-steps and the
-    visited cells."""
+    same uniforms, then the flush of the state after it against the plain
+    flush: the states and maps must be exactly equal, and some points
+    pending. Returns the largest difference of the maps (0), the agents,
+    the live agent-steps, the visited cells and the pending points."""
     from ssrs_tpu_torch.agents.fused_chunk import (fused_chunk,
                                                    fused_chunk_plain)
+    from ssrs_tpu_torch.agents.presence_hist import (presence_flush,
+                                                     presence_flush_plain)
     from ssrs_tpu_torch.agents.simulate import init_state
     params, dirp, restr, table, starts = _run_table(torch, sim)
     state0 = init_state(params, starts, device=sim.device)
@@ -1295,7 +1337,16 @@ def _chunk_against_plain(torch, sim, label):
     if diff:
         fail(f'{label}: the {CHUNK_T}-step chunk on the region\'s table '
              f'differs from the plain version in {diff}')
-    return err, n, _live_steps(state0, got), int((got.presence > 0).sum())
+    maps = [got.presence.clone(), got.presence.clone()]
+    flags = [presence_flush(got.pos_r, got.pos_c, got.palive, maps[0]),
+             presence_flush_plain(got.pos_r, got.pos_c, got.palive, maps[1])]
+    pending = int(got.palive.sum())
+    if not pending or not torch.equal(*maps) or \
+            not torch.equal(*flags) or torch.equal(maps[0], got.presence):
+        fail(f'{label}: the flush after the chunk differs from the plain '
+             'flush')
+    return err, n, _live_steps(state0, got), int((got.presence > 0).sum()), \
+        pending
 
 
 def phase_chunk_main(torch, sim, device_name):
@@ -2377,13 +2428,14 @@ def _refuse_http():
     return mod
 
 
-def _region_lonlat_bounds():
-    """(west, south, east, north) of the README region in lon/lat, as the
-    ``Simulator`` works them out."""
+def _region_lonlat_bounds(cfg=None):
+    """(west, south, east, north) in lon/lat of the region of ``cfg`` (a
+    ``Config``; the README region without one), as the ``Simulator``
+    works them out."""
     from ssrs_tpu_torch import Config
     from ssrs_tpu_torch.core.grid import Grid
     from ssrs_tpu_torch.data import transform_bounds, transform_coordinates
-    cfg = Config(**MAIN_CONFIG)
+    cfg = Config(**MAIN_CONFIG) if cfg is None else cfg
     west, south = transform_coordinates(
         'EPSG:4326', cfg.projected_crs, cfg.southwest_lonlat[0],
         cfg.southwest_lonlat[1])
@@ -2393,12 +2445,14 @@ def _region_lonlat_bounds():
     return transform_bounds(grid.bounds, cfg.projected_crs, 'EPSG:4326')
 
 
-def _wtk_sites():
+def _wtk_sites(lonlat_bounds=None):
     """(lat, lon) of the stand-in's sites, lat-major: a 2-km lattice over
-    the README region's lon/lat bounds and a margin, each site moved off
-    the lattice by up to 200 m (WTK's projected grid is not a lattice in
-    lon/lat either, and four sites on a circle have two triangulations)."""
-    lon0, lat0, lon1, lat1 = _region_lonlat_bounds()
+    the lon/lat bounds (the README region's without them) and a margin,
+    each site moved off the lattice by up to 200 m (WTK's projected grid
+    is not a lattice in lon/lat either, and four sites on a circle have two
+    triangulations)."""
+    lon0, lat0, lon1, lat1 = _region_lonlat_bounds() \
+        if lonlat_bounds is None else lonlat_bounds
     mid = math.radians((lat0 + lat1) / 2)
     dlat = WTK_SPACING_KM / 111.2
     dlon = dlat / math.cos(mid)
@@ -2439,36 +2493,38 @@ class _StandInDataset:
     """An h5py-shaped dataset whose values are a function of the index:
     numpy indexing of ``(hours, sites)``, ``attrs``."""
 
-    def __init__(self, name, lat, lon):
+    def __init__(self, name, lat, lon, hours):
         self._name, self._lat, self._lon = name, lat, lon
+        self._hours = hours
         self.attrs = {} if name == 'coordinates' else \
             {'scale_factor': WTK_SCALE[name]}
         self.shape = (len(lat), 2) if name == 'coordinates' else \
-            (WTK_HOURS, len(lat))
+            (hours, len(lat))
 
     def __getitem__(self, key):
         if self._name == 'coordinates':
             return np.stack([self._lat, self._lon], axis=1)[key]
         hours, sites = key
-        hours = np.arange(WTK_HOURS)[hours]
+        hours = np.arange(self._hours)[hours]
         return _wtk_raw(self._name, hours[..., None] if np.ndim(hours)
                         else hours, self._lat[sites], self._lon[sites])
 
 
 class _StandInH5:
     """An ``h5py``-shaped module over the stand-in: ``File(path, mode)`` as
-    a context manager with ``__iter__`` and ``__getitem__``, for the one
-    path it was made for. ``reads`` lists every dataset taken from a
-    file."""
+    a context manager with ``__iter__`` and ``__getitem__``, for the paths
+    ``add`` was given. ``reads`` lists every dataset taken from a file."""
 
-    def __init__(self, fpath, lat, lon):
+    def __init__(self):
         self.reads = reads = []
+        self.files = files = {}
 
         class File:
             def __init__(self, path, mode='r', **kwargs):
-                if os.path.abspath(path) != os.path.abspath(fpath):
+                if os.path.abspath(path) not in files:
                     raise FileNotFoundError(path)
-                self._sets = {n: _StandInDataset(n, lat, lon)
+                lat, lon, hours = files[os.path.abspath(path)]
+                self._sets = {n: _StandInDataset(n, lat, lon, hours)
                               for n in ['coordinates'] + WTK_LAYERS}
 
             def __enter__(self):
@@ -2486,6 +2542,40 @@ class _StandInH5:
 
         self.File = File
 
+    def add(self, fpath, lat, lon, hours):
+        """The stand-in at ``fpath``: these sites, ``hours`` hours."""
+        with open(fpath, 'wb') as fobj:
+            fobj.write(b'stand-in; the values are computed by chip_smoke.py')
+        self.files[os.path.abspath(fpath)] = (lat, lon, hours)
+
+
+def _year_hours(year):
+    return 24 * (366 if year % 4 == 0 else 365)
+
+
+def _write_h5(h5py, fpath, lat, lon, hours):
+    """The stand-in as a real ``.h5`` file, two months at a time."""
+    with h5py.File(fpath, 'w') as fobj:
+        fobj.create_dataset('coordinates', data=np.stack([lat, lon], axis=1))
+        for name in WTK_LAYERS:
+            dset = fobj.create_dataset(name, (hours, len(lat)), 'i4')
+            dset.attrs['scale_factor'] = WTK_SCALE[name]
+            for h0 in range(0, hours, 24 * 61):
+                span = np.arange(h0, min(h0 + 24 * 61, hours))
+                dset[span[0]:span[-1] + 1] = _wtk_raw(name, span[:, None],
+                                                      lat, lon)
+
+
+def _add_standin(fpath, lat, lon, year):
+    """One more year or region of the stand-in, after
+    ``phase_wtk_archive``: a real ``.h5`` where ``h5py`` imports, else a
+    path of the script's own ``h5py``-shaped module."""
+    mod = sys.modules['h5py']
+    if isinstance(mod, _StandInH5):
+        mod.add(fpath, lat, lon, _year_hours(year))
+    else:
+        _write_h5(mod, fpath, lat, lon, _year_hours(year))
+
 
 def phase_wtk_archive(out):
     """The WTK stand-in for 2012 (an hourly 2-km grid of six layers): a
@@ -2502,16 +2592,7 @@ def phase_wtk_archive(out):
     except ImportError:
         h5py = None
     if h5py is not None:
-        with h5py.File(fpath, 'w') as fobj:
-            fobj.create_dataset('coordinates',
-                                data=np.stack([lat, lon], axis=1))
-            for name in WTK_LAYERS:
-                dset = fobj.create_dataset(name, (WTK_HOURS, len(lat)), 'i4')
-                dset.attrs['scale_factor'] = WTK_SCALE[name]
-                for h0 in range(0, WTK_HOURS, 24 * 61):
-                    hours = np.arange(h0, min(h0 + 24 * 61, WTK_HOURS))
-                    dset[hours[0]:hours[-1] + 1] = _wtk_raw(
-                        name, hours[:, None], lat, lon)
+        _write_h5(h5py, fpath, lat, lon, WTK_HOURS)
         # count the datasets taken, through a module that hands h5py's
         # files on
         reads = []
@@ -2529,9 +2610,8 @@ def phase_wtk_archive(out):
         kind = f'a real .h5 through h5py {h5py.__version__} ' \
             f'({os.path.getsize(fpath) / 1e6:.0f} MB)'
     else:
-        with open(fpath, 'wb') as fobj:
-            fobj.write(b'stand-in; the values are computed by chip_smoke.py')
-        standin = _StandInH5(fpath, lat, lon)
+        standin = _StandInH5()
+        standin.add(fpath, lat, lon, WTK_HOURS)
         reads = standin.reads
         sys.modules['h5py'] = standin
         kind = "an h5py-shaped module of the script's own (no h5py here)"
@@ -3041,8 +3121,8 @@ def phase_cli(torch, device_name, out, main_saved):
             fail(f'{label}: the count of the .pkl differs from the plain '
                  f'count by {count_err}')
         sims[name] = Simulator(cfg)
-        chunk_err, n, live, cells = _chunk_against_plain(torch, sims[name],
-                                                         label)
+        chunk_err, n, live, cells, pending = _chunk_against_plain(
+            torch, sims[name], label)
         phases = {k: records[k]['seconds'] for k in (
             'terrain', 'updrafts', 'potential', 'tracks', 'write_tracks',
             'simulate_tracks', 'presence_map')}
@@ -3061,12 +3141,13 @@ def phase_cli(torch, device_name, out, main_saved):
             'chunk_against_plain': {'agents': n, 'steps': CHUNK_T,
                                     'live_agent_steps': live,
                                     'cells': cells,
-                                    'max_abs_err': chunk_err}}
+                                    'max_abs_err': chunk_err,
+                                    'flush_pending': pending}}
         say(f'{label}: the count kernel on the .pkl\'s {rows.numel()} '
-            f'points and one {CHUNK_T}-step chunk launch from the region\'s '
+            f'points, one {CHUNK_T}-step chunk launch from the region\'s '
             f'{n} starts on its {shape[0] * shape[1]}x9 table ({live} live '
-            f'agent-steps, {cells} cells) are exactly equal to their plain '
-            'versions')
+            f'agent-steps, {cells} cells) and its flush ({pending} pending) '
+            'are exactly equal to their plain versions')
         say(f'{label} ({shape[0]}x{shape[1]} at {region["resolution"]:g} m, '
             f'{source}): potential {_solver_line(pot).split(" ", 1)[1]}, '
             f'{pot["vcycles"]} V-cycles, fallback {pot["fallback"]}; '
@@ -3478,6 +3559,359 @@ def phase_sharded(torch, device_name, out, sim, solver):
                        'vcycles': h_stats['vcycles'], 'seconds': h_secs}}
 
 
+def _notebook_cells(name):
+    """The code cells of ``notebooks/<name>.ipynb`` by their index in it,
+    for the port on the card: ``ssrs_tpu`` replaced by ``ssrs_tpu_torch``,
+    without the lines that pin JAX, call an IPython magic or import
+    matplotlib (the card's machine has none)."""
+    import re
+    with open(os.path.join(REPO, 'notebooks', f'{name}.ipynb')) as fobj:
+        nb = json.load(fobj)
+    cells = {}
+    for i, cell in enumerate(nb['cells']):
+        if cell['cell_type'] == 'code':
+            lines = [line for line in ''.join(cell['source']).splitlines()
+                     if not line.startswith(('%', 'import jax', 'jax.'))
+                     and 'matplotlib' not in line]
+            cells[i] = re.sub(r'\bssrs_tpu\b', 'ssrs_tpu_torch',
+                              '\n'.join(lines))
+    return cells
+
+
+def _notebook_names(name, given):
+    """The names a notebook's cells bind at their top level to a literal or
+    to a ``Config(...)`` or ``replace(...)`` call, evaluated in order;
+    the names in ``given`` keep the script's values."""
+    import ast
+    from ssrs_tpu_torch import Config
+    ns = {'Config': Config, 'replace': dataclasses.replace, **given}
+    for src in _notebook_cells(name).values():
+        for node in ast.parse(src).body:
+            if not isinstance(node, ast.Assign) or len(node.targets) != 1 \
+                    or not isinstance(node.targets[0], ast.Name) or \
+                    node.targets[0].id in given:
+                continue
+            call = node.value
+            if isinstance(call, ast.Call) and isinstance(call.func, ast.Name) \
+                    and call.func.id in ('Config', 'replace'):
+                exec(compile(ast.Module([node], []), name, 'exec'), ns)
+                continue
+            try:
+                ns[node.targets[0].id] = ast.literal_eval(call)
+            except ValueError:
+                pass
+    return ns
+
+
+def _exec_cells(name, cells, which, ns):
+    for i in which:
+        exec(compile(cells[i], f'{name}.ipynb, cell {i}', 'exec'), ns)
+
+
+def _terrain_demo(torch, device_name):
+    """terrain_demo.ipynb's cells but its figures (cell 16), in the current
+    directory: the root imports, the terrain chain to the synthetic DEM,
+    the reprojection, slope and aspect (numpy, so on the CPU), and the
+    turbines from the notebook's pandas frame. Then slope and aspect of
+    the elevation as a card tensor against the cell's, and the turbines
+    from the frame's columns as a dict against the frame's."""
+    from ssrs_tpu_torch import (TurbinesUSWTB, compute_aspect_degrees,
+                                compute_slope_degrees)
+    cells = _notebook_cells('terrain_demo')
+    ns = {}
+    t0 = time.perf_counter()
+    _exec_cells('terrain_demo', cells,
+                [i for i in sorted(cells) if 'plt.' not in cells[i]], ns)
+    wall = time.perf_counter() - t0
+    elevation = ns['elevation']
+    if ns['elevation_layer'] != 'SYNTHETIC' or \
+            elevation.shape != tuple(ns['gridsize']) or \
+            not np.isfinite(elevation).all():
+        fail(f'terrain_demo: elevation {ns["elevation_layer"]} '
+             f'{elevation.shape}')
+    on_card = torch.from_numpy(np.ascontiguousarray(elevation)).cuda()
+    errs = {}
+    for key, fn in (('slope', compute_slope_degrees),
+                    ('aspect', compute_aspect_degrees)):
+        got = fn(on_card, ns['resolution'])
+        want = ns[key]
+        if got.device != on_card.device or got.shape != want.shape:
+            fail(f'terrain_demo: {key} {got.device} {tuple(got.shape)}')
+        got = got.cpu().numpy()
+        errs[key] = float(np.abs(got - want).max())
+        if not np.allclose(got, want, rtol=ORO_RTOL, atol=ORO_ATOL):
+            fail(f'terrain_demo: {key} on the card differs from the CPU\'s '
+                 f'by {errs[key]:.3g}')
+    frame = ns['fixture']
+    from_dict = TurbinesUSWTB(ns['bounds'], ns['proj_crs'],
+                              min_hubheight=60., out_fpath=None,
+                              dataframe={k: frame[k].to_numpy()
+                                         for k in frame.columns})
+    xs, ys = from_dict.get_locations()
+    n_turb = len(ns['turbines'].dframe)
+    if type(frame).__module__.split('.')[0] != 'pandas' or not n_turb or \
+            not ns['turbines'].dframe.equals(from_dict.dframe) or \
+            not np.array_equal(ns['turb_xlocs'], xs) or \
+            not np.array_equal(ns['turb_ylocs'], ys):
+        fail('terrain_demo: the turbines of the pandas frame and of its '
+             'columns as a dict differ')
+    say(f'notebooks terrain_demo: {elevation.shape[0]}x{elevation.shape[1]} '
+        f'{ns["elevation_layer"]} DEM through Terrain and '
+        f'get_raster_in_projected_crs; slope and aspect of the elevation on '
+        f'the card against the CPU\'s: max |diff| {errs["slope"]:.3g} and '
+        f'{errs["aspect"]:.3g} (rtol {ORO_RTOL:g}, atol {ORO_ATOL:g}); '
+        f'TurbinesUSWTB: {n_turb} of {len(frame)} turbines from the pandas '
+        f'frame, equal to those of its columns as a dict; cells {wall:.3f} '
+        f's on {device_name}')
+    return {'grid': list(elevation.shape), 'layer': ns['elevation_layer'],
+            'slope_max_abs_err': errs['slope'],
+            'aspect_max_abs_err': errs['aspect'], 'turbines': n_turb,
+            'cells_s': wall}
+
+
+def _wtk_demo(device_name):
+    """wtk_demo.ipynb's cells but its archive (cell 3, h5py) and its
+    figures (cell 9), in the current directory, on a stand-in archive for
+    2014 over the notebook's bounds: the sources, the layer probe, the
+    frame of one timestamp against the stand-in's values, the
+    coordinates."""
+    cells = _notebook_cells('wtk_demo')
+    given = _notebook_names('wtk_demo', {})
+    ns = {}
+    _exec_cells('wtk_demo', cells, [1], ns)
+    ns['fixture_tpl'] = os.path.join(ns['output_dir'], 'wtk_demo_$YEAR.h5')
+    lat, lon = _wtk_sites(given['lonlat_bounds'])
+    _add_standin(ns['fixture_tpl'].replace('$YEAR', '2014'), lat, lon, 2014)
+    t0 = time.perf_counter()
+    _exec_cells('wtk_demo', cells, [2, 4, 6, 7], ns)
+    wall = time.perf_counter() - t0
+    frame, dtime = ns['wtkdf'], ns['dtime']
+    layers = list(ns['wtk_layers'])
+    idx = frame['Indices']
+    hour = int((dtime - datetime(dtime.year, 1, 1)).total_seconds() // 3600)
+    xs, ys = ns['wtk'].get_coordinates()
+    bad = [name for name in layers if not np.array_equal(
+        frame[name], _wtk_raw(name, hour, lat[idx], lon[idx])
+        / WTK_SCALE[name])]
+    if ns['WTK'].valid_sources != ('AWS', 'EAGLE', 'EAGLE_LED', 'LOCAL') or \
+            sorted(ns['wtk_source'].valid_layers) != sorted(
+                ['coordinates'] + WTK_LAYERS) or \
+            frame.columns != ['Indices', 'Longitude', 'Latitude'] + layers \
+            or not len(frame) or bad or \
+            not np.array_equal(frame['Longitude'], lon[idx]) or \
+            not np.array_equal(frame['Latitude'], lat[idx]) or \
+            not np.array_equal(xs, lon[idx]) or \
+            not np.array_equal(ys, lat[idx]):
+        fail(f'wtk_demo: the frame of {dtime} or the sources differ '
+             f'(layers {bad})')
+    say(f'notebooks wtk_demo: WTK.valid_sources, the LOCAL layer probe, '
+        f'get_dataframe_for_this_time({dtime}) on {len(frame)} of the '
+        f'stand-in\'s {len(lat)} sites: every layer and the coordinates '
+        f'equal to the stand-in\'s values; cells {wall:.3f} s on '
+        f'{device_name}')
+    return {'sites': len(frame), 'hour': hour, 'cells_s': wall}
+
+
+def _notebook_mass(label, sim):
+    """The mass checks on every case's counts: at least every track's
+    burn-in, and the points of the ``.pkl`` where the run recorded.
+    Returns the masses."""
+    floor = sim.track_count * (sim.grid.burnin_length() + 1)
+    masses = []
+    for case in sim.case_ids:
+        for real in range(max(1, int(sim.thermals_realization_count))):
+            ident = sim._get_id_string(case, real)
+            counts = np.load(os.path.join(sim.mode_data_dir,
+                                          f'{ident}_counts.npy'))
+            mass = int(counts.sum(dtype=np.int64))
+            if counts.shape != tuple(sim.gridsize) or \
+                    counts.dtype != np.int32 or counts.min() < 0 or \
+                    mass < floor:
+                fail(f'{label} {ident}: counts {counts.dtype} '
+                     f'{counts.shape}, mass {mass} < {floor}')
+            pkl = os.path.join(sim.mode_data_dir, f'{ident}_tracks.pkl')
+            if os.path.exists(pkl):
+                with open(pkl, 'rb') as fobj:
+                    tracks = pickle.load(fobj)
+                if len(tracks) != sim.track_count or \
+                        mass != sum(len(t) for t in tracks):
+                    fail(f'{label} {ident}: counts mass {mass} != the '
+                         f'points of its {len(tracks)} tracks')
+            masses.append(mass)
+    return masses
+
+
+def _stalled_solves(label, sim, pots):
+    """The refined solves of ``pots`` that ended unconverged but inside the
+    net; up to STALL_DIRECT_MAX_CELLS each against the host direct
+    solve."""
+    from ssrs_tpu_torch.potential import solve_potential_direct
+    out = []
+    for rec in pots:
+        if rec['solver'] != 'refined' or rec['fallback'] or \
+                not STALL_RREL[0] < rec['rrel'] <= STALL_RREL[1]:
+            continue
+        stall = {'id': rec['id'], 'rrel': rec['rrel'],
+                 'grid': list(sim.gridsize)}
+        if np.prod(sim.gridsize) <= STALL_DIRECT_MAX_CELLS:
+            case, real = rec['id'].split('_')[0], int(
+                rec['id'].rsplit('_r', 1)[1])
+            cond = sim.load_updrafts(case, device=False)[real]
+            pot = np.load(os.path.join(sim.mode_data_dir,
+                                       f'{rec["id"]}_potential.npy'))
+            t0 = time.perf_counter()
+            want = solve_potential_direct(cond, sim.track_direction)
+            diff = np.abs(pot.astype(np.float64) - want)
+            stall.update(max_abs=float(diff.max()), mean_abs=float(
+                diff.mean()), direct_s=time.perf_counter() - t0)
+        against = '' if 'max_abs' not in stall else (
+            f'; against the host direct solve max |diff| '
+            f'{stall["max_abs"]:.4g}, mean {stall["mean_abs"]:.4g} '
+            f'({stall["direct_s"]:.1f} s)')
+        say(f'{label}: {rec["id"]} stalled at rrel {rec["rrel"]:.2e} inside '
+            f'the 5e-3 net{against}')
+        out.append(stall)
+    return out
+
+
+def phase_notebooks(torch, device_name, out, template):
+    """The notebooks through the port on the card: terrain_demo and
+    wtk_demo (their cells), then every configuration of ssrs_tpu_demo
+    (at its own size), workshop_cases and ssrs_modes (at NOTEBOOK_RES),
+    read from the notebooks' JSON, each through ``Simulator(config)`` and
+    ``simulate_tracks()``; the WTK cases on stand-ins of their regions
+    and years. Gates: the mass checks of every case, kernel C's recount
+    of one ``.pkl`` and, at the largest grid, one chunk launch from the
+    case's own starts and its flush, exact against the plain versions."""
+    from ssrs_tpu_torch import Simulator
+    from ssrs_tpu_torch.agents.presence import track_points
+    from ssrs_tpu_torch.agents.presence_hist import (
+        presence_histogram_batch, presence_histogram_batch_plain)
+    t_phase = time.perf_counter()
+    nb_dir = os.path.join(out, 'notebooks')
+    os.makedirs(nb_dir)
+    cwd = os.getcwd()
+    os.chdir(nb_dir)
+    try:
+        terrain = _terrain_demo(torch, device_name)
+        wtk = _wtk_demo(device_name)
+    finally:
+        os.chdir(cwd)
+
+    # the stand-ins the WTK cases read: Altamont Pass for 2012, the README
+    # region (ssrs_modes's) for 2014 beside phase_wtk_archive's 2012
+    alt_tpl = os.path.join(nb_dir, 'wtk_alt_$YEAR.h5')
+    given = {'workshop_cases': {'RES': NOTEBOOK_RES, 'output_dir': nb_dir,
+                                'fixture_tpl': alt_tpl},
+             'ssrs_modes': {'output_dir': nb_dir, 'fixture_tpl': template},
+             'ssrs_tpu_demo': {}}
+    configs = {}
+    for name, labels in NOTEBOOK_RUNS:
+        ns = _notebook_names(name, given[name])
+        for label in labels:
+            cfg = dataclasses.replace(ns[label], out_dir=nb_dir)
+            if name == 'ssrs_modes':
+                cfg = dataclasses.replace(cfg, resolution=NOTEBOOK_RES)
+            configs[label] = (name, cfg)
+    alt = configs['alt_test1'][1]
+    _add_standin(alt_tpl.replace('$YEAR', '2012'),
+                 *_wtk_sites(_region_lonlat_bounds(alt)), 2012)
+    _add_standin(template.replace('$YEAR', '2014'), *_wtk_sites(), 2014)
+
+    total = dict.fromkeys(_read_counts(), 0)
+    runs, stalls, gates = {}, [], {}
+    for label, (name, cfg) in configs.items():
+        _reset_counts()
+        t0 = time.perf_counter()
+        sim = Simulator(cfg)
+        sim.simulate_tracks()
+        wall = time.perf_counter() - t0
+        launched = _read_counts()
+        for key, n in launched.items():
+            total[key] += n
+        recs = sim.timer.records
+        pots = [r for r in recs if r['phase'] == 'potential']
+        steps = [s for r in recs if r['phase'] in ('tracks', 'batched_tracks')
+                 for s in np.atleast_1d(r['steps']).tolist()]
+        _check_chunk_launches(f'{name} {label}', launched, steps)
+        _check_flush_launches(f'{name} {label}', launched)
+        masses = _notebook_mass(f'{name} {label}', sim)
+        runs[label] = {
+            'notebook': name, 'run_name': cfg.run_name,
+            'sim_mode': cfg.sim_mode, 'grid': list(sim.gridsize),
+            'tracks': cfg.track_count, 'cases': len(sim.case_ids),
+            'wall_s': wall,
+            'solve_s': sum(r['seconds'] for r in pots),
+            'solves': [{k: r[k] for k in ('id', 'solver', 'rrel', 'fallback',
+                                          'seconds', 'vcycles')}
+                       for r in pots],
+            'steps': steps, 'mass': masses,
+            'fused_chunk': launched['fused_chunk'],
+            'presence_flush': launched['presence_flush']}
+        say(f'notebooks {name} {label} ({cfg.run_name}, {cfg.sim_mode}, '
+            f'{sim.gridsize[0]}x{sim.gridsize[1]} at {cfg.resolution:g} m, '
+            f'{len(sim.case_ids)} case(s) x {cfg.track_count} tracks): run '
+            f'{wall:.3f} s, solves ' + '; '.join(
+                _solver_line(r).split(' ', 1)[1] + f' {r["vcycles"]} '
+                'V-cycles' for r in pots)
+            + f'; steps {steps}: {launched["fused_chunk"]} chunk launches, '
+            f'{launched["presence_flush"]} flush launches for '
+            f'{launched["flushes"]} flushes; mass {masses} on {device_name}')
+        stalls += _stalled_solves(f'notebooks {label}', sim, pots)
+
+        # the gates, whose launches the run's counts leave out
+        if label == NOTEBOOK_CHUNK:
+            err, n, live, cells, pending = _chunk_against_plain(
+                torch, sim, f'notebooks {label}')
+            gates['chunk'] = {'run': label, 'grid': list(sim.gridsize),
+                              'agents': n, 'steps': CHUNK_T,
+                              'live_agent_steps': live, 'cells': cells,
+                              'max_abs_err': err, 'flush_pending': pending,
+                              'flush_max_abs_err': 0}
+            say(f'notebooks {label}: one {CHUNK_T}-step chunk launch from '
+                f'the case\'s {n} starts on its '
+                f'{sim.gridsize[0] * sim.gridsize[1]}x9 table ({live} live '
+                f'agent-steps, {cells} cells) and its flush ({pending} '
+                'pending) exactly equal to the plain versions')
+        if label == NOTEBOOK_RECOUNT:
+            ident = sim._get_id_string(sim.case_ids[0], 0)
+            with open(os.path.join(sim.mode_data_dir,
+                                   f'{ident}_tracks.pkl'), 'rb') as fobj:
+                tracks = pickle.load(fobj)
+            counts = np.load(os.path.join(sim.mode_data_dir,
+                                          f'{ident}_counts.npy'))
+            rows, cols = track_points(tracks, torch.device('cuda'))
+            recount = presence_histogram_batch(rows, cols, *sim.gridsize)
+            err = int((recount - presence_histogram_batch_plain(
+                rows, cols, *sim.gridsize)).abs().max())
+            if err or not np.array_equal(recount.cpu().numpy(), counts):
+                fail(f'notebooks {label}: the count of the .pkl differs from '
+                     f'the plain count by {err}, or from _counts.npy')
+            gates['count'] = {'run': label, 'points': int(rows.numel()),
+                              'max_abs_err': err}
+            say(f'notebooks {label}: the count kernel on the .pkl\'s '
+                f'{rows.numel()} points exactly equal to the plain count and '
+                'to _counts.npy')
+    phase_s = time.perf_counter() - t_phase
+    n_solves = sum(len(r['solves']) for r in runs.values())
+    say(f'notebooks: {len(runs)} runs, {n_solves} potentials, '
+        f'{len(stalls)} refined solves stalled inside the net (rrel in '
+        f'({STALL_RREL[0]:g}, {STALL_RREL[1]:g}]); {total["fused_chunk"]} '
+        f'chunk launches, {total["presence_flush"]} flush launches; phase '
+        f'{phase_s:.1f} s on {device_name}')
+    return total, {'terrain_demo': terrain, 'wtk_demo': wtk, 'runs': runs,
+                   'gates': gates, 'stalled_solves': stalls,
+                   'phase_s': phase_s}
+
+
+def _check_imports(offline, packages):
+    """Fails if a module of ``packages`` was imported, or a ``requests``
+    other than the script's own refusing one."""
+    bad = [m for m in sys.modules if m.split('.')[0] in packages]
+    if bad or sys.modules.get('requests') is not offline:
+        fail(f'imported through the port: {bad or "requests"}')
+
+
 def main() -> int:
     try:
         import torch
@@ -3517,13 +3951,15 @@ def main() -> int:
         snapshot_run, snapshot = phase_snapshot(torch, name, out, template)
         cli_run, cli = phase_cli(torch, name, out, main_saved)
         sharded_run, sharded = phase_sharded(torch, name, out, sim, solver)
+        # the port took in no pandas up to here; the notebooks' cells
+        # import it themselves
+        _check_imports(offline, ('jax', 'jaxlib', 'ssrs_tpu', 'pandas'))
+        notebooks_run, notebooks = phase_notebooks(torch, name, out,
+                                                   template)
     phase_small(torch)
-    # the port took in no JAX, and no pandas or requests either: the only
+    # the port took in no JAX, and no requests either: the only
     # ``requests`` is the script's own, which refuses
-    bad = [m for m in sys.modules if m.split('.')[0] in (
-        'jax', 'jaxlib', 'ssrs_tpu', 'pandas')]
-    if bad or sys.modules.get('requests') is not offline:
-        fail(f'imported through the port: {bad or "requests"}')
+    _check_imports(offline, ('jax', 'jaxlib', 'ssrs_tpu'))
     bf16, f32 = timing['bfloat16'], timing['float32']
     flush_real, flush_syn = engine['flush_real'], hist['presence_flush']
     count_syn = hist['presence_histogram_batch']
@@ -3612,15 +4048,17 @@ def main() -> int:
         k['launches_uniform_run'] = main_run[k['name']]
         k['launches_recorded_run'] = recorded[k['name']]
         # the multi-case paths (the direction sweep, the thermals run, the
-        # drw run) and the WTK modes (the seasonal run, the snapshot run
-        # with its recounts), each counted from 0 just before it
+        # drw run), the WTK modes (the seasonal run, the snapshot run with
+        # its recounts), the cli, solver_options and notebooks phases, each
+        # counted from 0 just before each run and summed over the phase
         new_paths = {'launches_sweep': sweep_run,
                      'launches_thermals_run': thermals_run,
                      'launches_drw_run': drw_run,
                      'launches_seasonal_run': seasonal_run,
                      'launches_snapshot_run': snapshot_run,
                      'launches_cli_run': cli_run,
-                     'launches_solver_options': options_run}
+                     'launches_solver_options': options_run,
+                     'launches_notebooks_run': notebooks_run}
         for key, counted in new_paths.items():
             k[key] = counted[k['name']]
             if k[key] < 1 and k['name'] in ('fused_chunk', 'presence_flush'):
@@ -3653,7 +4091,7 @@ def main() -> int:
              'solver_options': options,
              'thermals_run': thermals_path, 'drw': drw,
              'seasonal': seasonal, 'snapshot': snapshot, 'cli': cli,
-             'sharded': sharded}
+             'sharded': sharded, 'notebooks': notebooks}
     print(json.dumps({'solver': solver, 'engine': engine, 'count': count,
                       'cases': cases}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

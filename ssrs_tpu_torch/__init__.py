@@ -18,12 +18,34 @@ ported and what is not. The package imports torch, numpy and scipy,
 never JAX or pandas; ``requests``, ``h5py`` and ``h5pyd`` only where a
 data source that needs them is used, and matplotlib only where a figure
 is drawn.
+
+The root re-exports ``ssrs_tpu``'s public surface, in its order (after the
+reference's ``ssrs/__init__.py:1-10``). Its field functions compute on the
+device of the tensor they are given, and take a numpy array as a CPU
+tensor; ``compute_thermals`` takes a ``torch.Generator`` where
+``ssrs_tpu``'s takes a key.
 """
 
 from .config import Config
 from .core import Grid
+from .data import (SRTM, WMS, WTK, Terrain, ThreeDEP, TurbinesUSWTB,
+                   WtkSource, get_raster_in_projected_crs,
+                   get_utm_string, transform_bounds, transform_coordinates)
+from .fields import (compute_aspect_degrees, compute_orographic_updraft,
+                     compute_potential_temperature, compute_slope_degrees,
+                     compute_thermal_updraft, compute_thermals,
+                     deardoff_velocity_function, get_above_threshold_speed)
 from .simulator import Simulator
 
 __version__ = '0.1.0'
 
-__all__ = ['Config', 'Grid', 'Simulator']
+__all__ = [
+    'Config', 'Simulator', 'Grid', 'SRTM', 'WMS', 'WTK', 'Terrain',
+    'ThreeDEP', 'TurbinesUSWTB', 'WtkSource',
+    'get_raster_in_projected_crs', 'transform_bounds',
+    'transform_coordinates', 'get_utm_string', 'compute_aspect_degrees',
+    'compute_orographic_updraft', 'compute_slope_degrees',
+    'compute_thermals', 'deardoff_velocity_function',
+    'compute_potential_temperature', 'compute_thermal_updraft',
+    'get_above_threshold_speed',
+]

@@ -46,3 +46,7 @@ class PhaseTimer:
         self._sync()
         dur = time.perf_counter() - start
         self.records.append({'phase': name, 'seconds': dur, **meta})
+
+    def summary(self) -> str:
+        lines = [f'{r["phase"]}: {r["seconds"]:.3f} s' for r in self.records]
+        return '\n'.join(lines)

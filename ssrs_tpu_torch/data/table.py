@@ -4,17 +4,18 @@ The JAX package's WTK and USWTDB clients return DataFrames and cache them
 as CSV files. The port does not import pandas, so this module holds the
 little those clients and the ``Simulator`` use of one: named 1-D numpy
 columns in order, a row index that survives selection and sorting,
-``assign``, a sort by one column, equality of a column, and ``to_csv`` /
-``read_csv`` in the layout pandas gives these frames (a leading unnamed
-index column, shortest round-trip floats, empty fields for NaN), so that
-a ``wtk_locations.csv``, ``y..._wtk.csv`` or ``turbines.csv`` written by
-either package serves the other.
+``assign``, ``head``, a sort by one column, equality of a column, and
+``to_csv`` / ``read_csv`` in the layout pandas gives these frames (a
+leading unnamed index column, shortest round-trip floats, empty fields
+for NaN), so that a ``wtk_locations.csv``, ``y..._wtk.csv`` or
+``turbines.csv`` written by either package serves the other. A table is made from any mapping of
+columns, a pandas DataFrame included, without importing pandas.
 """
 
 from __future__ import annotations
 
 import csv
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Mapping, Optional
 
 import numpy as np
 
@@ -26,11 +27,15 @@ class EmptyDataError(ValueError):
 class Table:
     """Named 1-D columns of one length, in order, with a row index."""
 
-    def __init__(self, columns: Optional[Dict[str, Iterable]] = None,
+    def __init__(self, columns: Optional[Mapping[str, Iterable]] = None,
                  index=None):
+        """``columns``: any mapping of names to 1-D values with
+        ``.items()``, in order (a dict, or a pandas DataFrame, whose columns
+        go through ``np.asarray``)."""
         self._cols: Dict[str, np.ndarray] = {}
-        for name, values in (columns or {}).items():
-            self._cols[str(name)] = _as_column(values)
+        if columns is not None:
+            for name, values in columns.items():
+                self._cols[str(name)] = _as_column(values)
         lengths = {len(v) for v in self._cols.values()}
         if len(lengths) > 1:
             raise ValueError(f'Table: columns of unequal length {lengths}')
@@ -42,7 +47,8 @@ class Table:
 
     @classmethod
     def from_any(cls, data) -> 'Table':
-        """A table, or a dict of columns, as a table."""
+        """A table, or a mapping of columns (a dict, a DataFrame), as a
+        table."""
         return data if isinstance(data, cls) else cls(data)
 
     # ---- shape and access ------------------------------------------------
@@ -82,6 +88,10 @@ class Table:
         for name, values in columns.items():
             out[name] = values
         return out
+
+    def head(self, n: int = 5) -> 'Table':
+        """The first ``n`` rows."""
+        return self.select(np.arange(min(n, len(self))))
 
     def select(self, rows) -> 'Table':
         """The rows of a boolean mask or of integer positions; each keeps

@@ -4,16 +4,14 @@ The PyTorch counterpart of ``ssrs_tpu/fields/atmosphere.py`` (reference
 semantics: ``deardoff_velocity_function``, ssrs/layers.py:25-37;
 ``compute_potential_temperature``, ssrs/layers.py:40-48;
 ``compute_thermal_updraft``, ssrs/layers.py:51-60). All are elementwise,
-in float32 on the device their inputs lie on.
+in float32 on the device their inputs lie on (a numpy array on the CPU).
 """
 
 from __future__ import annotations
 
 import torch
 
-
-def _as_f32(x) -> torch.Tensor:
-    return torch.as_tensor(x).to(torch.float32)
+from .terrain import _as_f32
 
 
 def deardoff_velocity_function(pot_temperature, blayer_height,

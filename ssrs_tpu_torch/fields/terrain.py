@@ -8,7 +8,8 @@ gradient along axis 0 and dz_dy along axis 1; border cells are zero.
 
 ``compute_slope_richdem_degrees`` and ``compute_aspect_richdem_degrees``
 are the same Horn gradients in richdem's raster convention and with its
-nodata border (ssrs/layers.py:131-168).
+nodata border (ssrs/layers.py:131-168). Each computes on the device of
+the tensor it is given; a numpy array is taken as a float32 CPU tensor.
 
 Inputs are computed in float32 on the device they lie on, as the JAX
 package computes them with 64-bit types off.
@@ -18,11 +19,20 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
+def from_numpy(x):
+    """A numpy array, of any strides, as a float32 CPU tensor; anything
+    else as it is."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(np.array(x, dtype=np.float32, order='C'))
+    return x
+
+
 def _as_f32(z_mat) -> torch.Tensor:
-    return torch.as_tensor(z_mat).to(torch.float32)
+    return torch.as_tensor(from_numpy(z_mat)).to(torch.float32)
 
 
 def _horn_gradients(z_mat: torch.Tensor, res: float):

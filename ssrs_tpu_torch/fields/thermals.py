@@ -23,6 +23,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .terrain import from_numpy
+
 
 def gaussian_kernel1d(sigma: float, truncate: float = 4.0) -> np.ndarray:
     """Discrete Gaussian kernel identical to scipy.ndimage's
@@ -65,7 +67,8 @@ def compute_thermals(generator: torch.Generator, aspect,
     lognormal magnitudes), each over the whole ``aspect`` shape.
     """
     device = generator.device
-    aspect = torch.as_tensor(aspect).to(device=device, dtype=torch.float32)
+    aspect = torch.as_tensor(from_numpy(aspect)).to(device=device,
+                                                  dtype=torch.float32)
     ysize, xsize = aspect.shape
     border_y = int(0.1 * ysize)
     border_x = int(0.1 * xsize)

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from .terrain import compute_slope_aspect_degrees
+from .terrain import compute_slope_aspect_degrees, from_numpy
 
 DEG2RAD = math.pi / 180.
 
@@ -24,6 +24,8 @@ DEG2RAD = math.pi / 180.
 def compute_orographic_updraft(wspeed, wdirn, slope, aspect,
                                min_updraft_val: float = 0.) -> torch.Tensor:
     """Brandes-Ombalski orographic updraft (ssrs/layers.py:11-22)."""
+    wspeed, wdirn, slope, aspect = map(from_numpy,
+                                       (wspeed, wdirn, slope, aspect))
     aspect_diff = torch.clamp(torch.cos((aspect - wdirn) * DEG2RAD), min=0.)
     wval = wspeed * torch.sin(slope * DEG2RAD) * aspect_diff
     return torch.clamp(wval, min=min_updraft_val)
@@ -37,6 +39,7 @@ def get_above_threshold_speed(in_array: torch.Tensor,
         1e-2 < w <= thresh -> thresh * (exp((w/thresh)^5) - 1) / (e - 1)
         w > thresh         -> w
     """
+    in_array = from_numpy(in_array)
     thr = torch.tensor(threshold, dtype=in_array.dtype,
                        device=in_array.device)
     x = in_array / thr
