@@ -134,6 +134,7 @@ in no requests, and no pandas before the notebooks' cells import it.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -309,6 +310,32 @@ NOTEBOOK_CHUNK = 'apl_test1'
 # host direct solve up to this many cells
 STALL_RREL = (RREL_MAX, 5e-3)
 STALL_DIRECT_MAX_CELLS = 600 * 600
+# BASELINE.json's config 5 ("Large-scale ensemble: 200x200 km @30 m DEM,
+# 100k tracks, presence map + turbine-conflict scoring") as a Config of the
+# port: the README region's corner, 200x200 km at 30 m (6667x6667 cells),
+# the README's wind, its south start band widened to the region, the step
+# cap of the other runs. 'auto' picks the refined solver and the bfloat16
+# table, and 100,000 tracks, above track_pkl_budget, the counts-only driver
+LARGE_CONFIG = dict(
+    run_name='large', sim_mode='uniform', southwest_lonlat=(-106.21, 42.78),
+    region_width_km=(200., 200.), resolution=30., uniform_winddirn=270.,
+    uniform_windspeed=10., track_direction=0., track_count=100_000,
+    track_start_region=(5., 195., 1., 2.), track_start_type='random',
+    track_max_steps=10_000, potential_solver='auto', sim_seed=7)
+LARGE_GRID = (6667, 6667)
+# the Simulator's residual net: a refined solve above it falls back, and at
+# this size, past potential_fallback_max_unknowns, raises
+LARGE_RREL_MAX = 5e-3
+# slope, aspect and updraft of the large grid, card against CPU, in row
+# bands of this many rows (one halo row each side on the CPU)
+LARGE_BAND_ROWS = 1024
+# a crop of the large run's field that the host's direct solve can take,
+# from the grid's centre, held refined on the card against direct
+LARGE_CROP = 600
+# the chunk kernel on the large table is timed at the first chunk, where
+# the starts crowd a band of the south edge, and from this step, where the
+# agents have spread north
+LARGE_LATE_STEP = 4096
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device-memory bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
@@ -688,6 +715,9 @@ def phase_hist(torch):
     # made here and not timed (the weights are 0/1 integers)
     r_in, c_in, sel = _in_range_long(torch, rb, cb, NROW, NCOL)
     lib_b = (r_in, c_in, wb.to(torch.int32)[sel])
+    # the other library call: one bincount of the in-range points' flat
+    # cells with the weights, made here and not timed
+    bin_b = (r_in * NCOL + c_in, wb[sel])
 
     def kernel():
         return ph.presence_histogram(rb, cb, wb, NROW, NCOL)
@@ -698,15 +728,20 @@ def phase_hist(torch):
     def library():
         return _index_put_map(torch, *lib_b, (NROW, NCOL))
 
+    def bincount():
+        return _bincount_map(torch, bin_b[0], (NROW, NCOL), bin_b[1])
+
     got, want, lib = kernel(), plain(), library()
     torch.cuda.synchronize()
     err = int((got.long() - want.long()).abs().max())
-    if err or int(want.sum()) <= 0 or not torch.equal(lib, want):
+    if err or int(want.sum()) <= 0 or not torch.equal(lib, want) or \
+            not torch.equal(bincount().to(torch.int32), want):
         fail(f'presence_histogram: differs from plain (max abs err {err}), '
-             'or the library call does')
+             'or a library call does')
     tm = {'max_abs_err': err, 'ms': _device_ms(torch, kernel),
           'plain_ms': _device_ms(torch, plain),
           'library_ms': _device_ms(torch, library),
+          'bincount_ms': _device_ms(torch, bincount),
           'host_ms': _host_ms(torch, kernel),
           'plain_host_ms': _host_ms(torch, plain)}
     # rows, cols, weights read once; the map written once
@@ -718,7 +753,8 @@ def phase_hist(torch):
         f'{tm["ms"] * 1e3:.1f} us device / {tm["host_ms"] * 1e3:.1f} us '
         f'wall; plain {tm["plain_ms"] * 1e3:.1f} us device / '
         f'{tm["plain_host_ms"] * 1e3:.1f} us wall; library index_put_ '
-        f'{tm["library_ms"] * 1e3:.1f} us device; bound '
+        f'{tm["library_ms"] * 1e3:.1f} us, bincount '
+        f'{tm["bincount_ms"] * 1e3:.1f} us device; bound '
         f'{tm["bound_ms"] * 1e3:.2f} us ({tm["bound_by"]})')
     base = torch.from_numpy(
         rng.integers(0, 50, (NROW, NCOL)).astype(np.int32)).to(dev)
@@ -778,8 +814,13 @@ def _flush_case(torch, rows, cols, palive, base, what):
     sel = _in_range_long(torch, rows, cols, nrow, ncol)[2] & palive
     r_in, c_in = rows[sel].long(), cols[sel].long()
     ones = torch.ones_like(r_in, dtype=torch.int32)
+    flat = r_in * ncol + c_in
     weights = palive.to(torch.float32)
     work = base.clone()
+    if not torch.equal(base + _bincount_map(torch, flat, (nrow, ncol)),
+                       maps[0]):
+        fail(f'presence_flush ({what}): the bincount of the pending points '
+             'differs from the flush')
 
     def flush():
         return ph.presence_flush(rows, cols, palive, work)
@@ -801,6 +842,8 @@ def _flush_case(torch, rows, cols, palive, base, what):
               rows, cols, palive, work)),
           'library_ms': _device_ms(torch, lambda: work.index_put_(
               (r_in, c_in), ones, accumulate=True)),
+          'bincount_ms': _device_ms(torch, lambda: _bincount_map(
+              torch, flat, (nrow, ncol))),
           'host_ms': _host_ms(torch, flush),
           'old_flush_host_ms': _host_ms(torch, old_flush),
           'points': rows.shape[0], 'pending': int(sel.sum())}
@@ -819,7 +862,8 @@ def _flush_case(torch, rows, cols, palive, base, what):
         f'{tm["host_ms"] * 1e3:.1f} us, old flush '
         f'{tm["old_flush_host_ms"] * 1e3:.1f} us; plain '
         f'{tm["plain_ms"] * 1e3:.1f} us; library index_put_ '
-        f'{tm["library_ms"] * 1e3:.1f} us device; bound '
+        f'{tm["library_ms"] * 1e3:.1f} us, bincount '
+        f'{tm["bincount_ms"] * 1e3:.1f} us device; bound '
         f'{tm["bound_ms"] * 1e3:.3f} us ({tm["bound_by"]})')
     return tm
 
@@ -840,14 +884,17 @@ def _count_case(torch, rows, cols, grid, what, steps=60):
     want = ph.presence_histogram_batch_plain(rows, cols, nrow, ncol)
     r_in, c_in, _ = _in_range_long(torch, rows, cols, nrow, ncol)
     ones = torch.ones_like(r_in, dtype=torch.int32)
+    flat = r_in * ncol + c_in
     lib = _index_put_map(torch, r_in, c_in, ones, grid)
     got = {name: ph.presence_histogram_batch(rows, cols, nrow, ncol, plan=p)
            for name, p in [('plan', plan), *plans.items()]}
     torch.cuda.synchronize()
     err = max(int((g.long() - want.long()).abs().max()) for g in got.values())
-    if err or not torch.equal(lib, want) or int(want.sum()) <= 0:
+    if err or not torch.equal(lib, want) or int(want.sum()) <= 0 or \
+            not torch.equal(_bincount_map(torch, flat, grid).to(torch.int32),
+                            want):
         fail(f'presence_histogram_batch ({what}): differs from plain (max '
-             f'abs err {err}), or the library call does')
+             f'abs err {err}), or a library call does')
     turns = {name: [] for name in plans}
     for name in ('direct', 'privatized', 'privatized', 'direct'):
         turns[name].append(_device_ms(
@@ -861,6 +908,8 @@ def _count_case(torch, rows, cols, grid, what, steps=60):
                   rows, cols, nrow, ncol), steps=steps),
           'library_ms': _device_ms(torch, lambda: _index_put_map(
               torch, r_in, c_in, ones, grid), steps=steps),
+          'bincount_ms': _device_ms(torch, lambda: _bincount_map(
+              torch, flat, grid), steps=steps),
           'host_ms': _host_ms(torch, lambda: ph.presence_histogram_batch(
               rows, cols, nrow, ncol), steps=20),
           'points': m, 'in_grid': int(r_in.numel()),
@@ -877,7 +926,8 @@ def _count_case(torch, rows, cols, grid, what, steps=60):
         f'{turns["privatized"][1] * 1e3:.1f}; plan\'s kernel '
         f'{tm["host_ms"] * 1e3:.1f} us wall; plain '
         f'{tm["plain_ms"] * 1e3:.1f} us; library index_put_ '
-        f'{tm["library_ms"] * 1e3:.1f} us; bound {tm["bound_ms"] * 1e3:.2f} '
+        f'{tm["library_ms"] * 1e3:.1f} us, bincount '
+        f'{tm["bincount_ms"] * 1e3:.1f} us; bound {tm["bound_ms"] * 1e3:.2f} '
         f'us ({tm["bound_by"]})')
     return tm
 
@@ -894,6 +944,14 @@ def _index_put_map(torch, r, c, values, grid):
     index_put_ into a new int32 map."""
     out = torch.zeros(grid, dtype=torch.int32, device=r.device)
     return out.index_put_((r, c), values, accumulate=True)
+
+
+def _bincount_map(torch, flat, grid, weights=None):
+    """The other library call that computes a presence histogram: one
+    bincount of the in-grid points' flat cells (with ``weights``, their
+    weighted sums), as a map of ``grid``."""
+    return torch.bincount(flat, weights=weights,
+                          minlength=grid[0] * grid[1]).view(grid)
 
 
 def _reset_counts():
@@ -1306,9 +1364,10 @@ def _run_table(torch, sim):
     return params, dirp, restr, table, _run_starts(sim)
 
 
-def _chunk_against_plain(torch, sim, label):
+def _chunk_against_plain(torch, sim, label, run=None):
     """One CHUNK_T-step launch of the chunk kernel on ``sim``'s own table
-    and starts against the plain version from the same state with the
+    and starts (``run``, :func:`_run_table`'s, built when not given)
+    against the plain version from the same state with the
     same uniforms, then the flush of the state after it against the plain
     flush: the states and maps must be exactly equal, and some points
     pending. Returns the largest difference of the maps (0), the agents,
@@ -1318,7 +1377,7 @@ def _chunk_against_plain(torch, sim, label):
     from ssrs_tpu_torch.agents.presence_hist import (presence_flush,
                                                      presence_flush_plain)
     from ssrs_tpu_torch.agents.simulate import init_state
-    params, dirp, restr, table, starts = _run_table(torch, sim)
+    params, dirp, restr, table, starts = run or _run_table(torch, sim)
     state0 = init_state(params, starts, device=sim.device)
     n = state0.pos_r.shape[0]
     u = torch.rand((CHUNK_T, n), device=sim.device, generator=torch.Generator(
@@ -2813,13 +2872,14 @@ def phase_seasonal(torch, device_name, out, template, wtk_reads):
         'rerun_ctor_s': rerun_ctor, 'rerun_s': rerun_s}
 
 
-def _turbine_fixture():
-    """A few dozen USWTDB-shaped turbines in and around the README region
-    (its lon/lat box widened by a third on every side), hub heights on
-    both sides of ``turbine_minimum_hubheight``."""
+def _turbine_fixture(cfg=None):
+    """A few dozen USWTDB-shaped turbines in and around the region of
+    ``cfg`` (the README region without one; its lon/lat box widened by a
+    third on every side), hub heights on both sides of
+    ``turbine_minimum_hubheight``."""
     rng = np.random.default_rng(MAIN_CONFIG['sim_seed'])
     n = SNAPSHOT_TURBINES
-    lon0, lat0, lon1, lat1 = _region_lonlat_bounds()
+    lon0, lat0, lon1, lat1 = _region_lonlat_bounds(cfg)
     dlon, dlat = (lon1 - lon0) / 3, (lat1 - lat0) / 3
     hub = rng.uniform(25., 120., n).round(1)
     return {
@@ -3904,6 +3964,477 @@ def phase_notebooks(torch, device_name, out, template):
                    'phase_s': phase_s}
 
 
+class _Probe:
+    """Wraps functions and methods of the port to count their calls and
+    add up their seconds, each call closed by a device synchronize, and to
+    keep the peak device memory of each (nested calls included: a call's
+    peak is the largest ``max_memory_allocated`` seen between its start
+    and its end, across the resets its inner calls make)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.stats = {}
+        self._undo = []
+        self._open = []
+
+    def wrap(self, owner, name, label):
+        orig = getattr(owner, name)
+        probe = self
+
+        def timed(*args, **kwargs):
+            with probe.span(label):
+                return orig(*args, **kwargs)
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, orig))
+
+    def restore(self):
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo = []
+
+    @contextlib.contextmanager
+    def span(self, label):
+        cuda = self.torch.cuda
+        cuda.synchronize()
+        if self._open:
+            self._open[-1] = max(self._open[-1], cuda.max_memory_allocated())
+        cuda.reset_peak_memory_stats()
+        self._open.append(0)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = max(self._open.pop(), cuda.max_memory_allocated())
+            if self._open:
+                self._open[-1] = max(self._open[-1], peak)
+            rec = self.stats.setdefault(label, {'calls': 0, 'seconds': 0.,
+                                                'peak_gb': 0.})
+            rec['calls'] += 1
+            rec['seconds'] += secs
+            rec['peak_gb'] = max(rec['peak_gb'], peak / 1e9)
+
+    def line(self, *labels):
+        return ', '.join(
+            f'{k} {self.stats[k]["seconds"]:.3f} s'
+            + (f' x{self.stats[k]["calls"]}' if self.stats[k]['calls'] > 1
+               else '') + f' (peak {self.stats[k]["peak_gb"]:.2f} GB)'
+            for k in labels if k in self.stats)
+
+
+def _large_probe(torch):
+    """The probe of the large run: the host's reprojection of the DEM and
+    its CRS transform, the Horn stencil and the updraft on the card, the
+    solve's host work (island labels, their per-level layouts and
+    coarsening) and its device parts (levels, refinement), the residual
+    net and the potential's copy to the host, the weight
+    table, the counts-only driver, the smoothing and the summary's
+    normalize and save."""
+    import ssrs_tpu_torch.agents.simulate as simulate_mod
+    import ssrs_tpu_torch.data.raster as raster_mod
+    import ssrs_tpu_torch.plotting as plotting_mod
+    import ssrs_tpu_torch.potential.lap as lap
+    import ssrs_tpu_torch.simulator as sim_mod
+    probe = _Probe(torch)
+    sim_cls = sim_mod.Simulator
+    for owner, name, label in (
+            (sim_mod, 'get_raster_in_projected_crs', 'reproject'),
+            (raster_mod, 'transform_coordinates', 'crs_transform'),
+            (sim_mod, 'compute_slope_aspect_degrees', 'horn'),
+            (sim_mod, 'compute_orographic_updraft', 'updraft'),
+            (sim_cls, '_begin_potential_solve', 'solve'),
+            (lap, 'island_labels', 'island_labels'),
+            (lap, 'build_lap_levels', 'levels'),
+            (lap, 'island_segments', 'island_segments'),
+            (lap, '_host_coarsen_labels', 'coarsen_labels'),
+            (lap, '_refine', 'refine'),
+            (sim_cls, '_finish_potential_solve_pair', 'net_and_copy'),
+            (simulate_mod, 'prepared_weights', 'table'),
+            (sim_cls, '_run_large', 'driver'),
+            (plotting_mod, 'smooth_presence', 'smooth'),
+            (sim_cls, '_finish_summary_presence', 'summary_save')):
+        probe.wrap(owner, name, label)
+    return probe
+
+
+def _large_fields(torch, sim):
+    """Slope and aspect of the Simulator's DEM (reprojected once a run;
+    its second ``get_terrain_elevation()`` timed) on the card, and the
+    saved orograph, against the same functions on the CPU, in row bands
+    of the DEM with a halo row on each side, within the fields' gate.
+    Returns the largest differences and the seconds of that call."""
+    from ssrs_tpu_torch.fields import (compute_orographic_updraft,
+                                       compute_slope_aspect_degrees)
+    oro = np.load(sim._get_orograph_fname(sim.case_ids[0],
+                                          sim.mode_data_dir) + '.npy')
+    t0 = time.perf_counter()
+    dem = sim.get_terrain_elevation()
+    dem_s = time.perf_counter() - t0
+    slope, aspect = compute_slope_aspect_degrees(
+        torch.from_numpy(dem.astype(np.float32)).cuda(), sim.resolution)
+    nrow = dem.shape[0]
+    errs = {'slope': 0., 'aspect': 0., 'updraft': 0.}
+    for r0 in range(0, nrow, LARGE_BAND_ROWS):
+        r1 = min(nrow, r0 + LARGE_BAND_ROWS)
+        lo, hi = max(0, r0 - 1), min(nrow, r1 + 1)
+        s, a = compute_slope_aspect_degrees(
+            torch.from_numpy(dem[lo:hi].astype(np.float32)), sim.resolution)
+        w = compute_orographic_updraft(
+            torch.full_like(s, float(sim.uniform_windspeed)),
+            torch.full_like(s, float(sim.uniform_winddirn)), s, a)
+        band = slice(r0 - lo, r1 - lo)
+        for key, got, want in (('slope', slope[r0:r1].cpu().numpy(), s),
+                               ('aspect', aspect[r0:r1].cpu().numpy(), a),
+                               ('updraft', oro[r0:r1], w)):
+            want = want[band].numpy()
+            errs[key] = max(errs[key], float(np.abs(got - want).max()))
+            if not np.allclose(got, want, rtol=ORO_RTOL, atol=ORO_ATOL):
+                fail(f'large run: {key} of rows {r0}..{r1} on the card '
+                     f'differs from the CPU\'s by {errs[key]:.3g}')
+    return errs, dem_s
+
+
+def crop_against_direct(torch, field, r0, c0, size, dirn, tol):
+    """The ``size`` x ``size`` window of ``field`` (a conductivity, numpy)
+    at row ``r0``, column ``c0`` solved alone by the refined solver on
+    the card and by the host's direct solve, with track direction
+    ``dirn``: {'crop', 'rrel', 'passes', 'vcycles', 'seconds', 'direct_s',
+    'max_abs_vs_direct', 'mean_abs_vs_direct' and the mean over the cells
+    with conductivity > 0, 'cond_pos_share'}."""
+    from ssrs_tpu_torch.potential import (boundary_masks,
+                                          solve_potential_direct,
+                                          solve_potential_refined)
+    cond = np.ascontiguousarray(field[r0:r0 + size, c0:c0 + size])
+    bmask, bvals = boundary_masks(dirn, cond.shape)
+    t0 = time.perf_counter()
+    want = solve_potential_direct(cond, dirn).astype(np.float64)
+    direct_s = time.perf_counter() - t0
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, rrel = solve_potential_refined(torch.from_numpy(cond).cuda(),
+                                        bmask, bvals, tol=tol, stats=stats)
+    diff = np.abs(got.cpu().numpy().astype(np.float64) - want)
+    pos = cond > 0
+    return {'crop': [r0, c0, size], 'rrel': rrel, 'passes': stats['passes'],
+            'vcycles': stats['vcycles'],
+            'seconds': time.perf_counter() - t0, 'direct_s': direct_s,
+            'max_abs_vs_direct': float(diff.max()),
+            'mean_abs_vs_direct': float(diff.mean()),
+            'mean_abs_vs_direct_cond_pos': float(diff[pos].mean()),
+            'cond_pos_share': float(pos.mean())}
+
+
+def _large_solve(torch, sim, probe):
+    """``simulate_tracks()`` of the large run up to its potential: the
+    refined solve, and the net's verdict. Returns {'rrel', 'passes',
+    'vcycles', 'seconds', 'refused': the ``RuntimeError``'s message or
+    None}. A refusal must name the grid and the rrel above the net, and
+    the stalled potential must be finite with an exact boundary; it is
+    then written to the run's potential cache (see :func:`phase_large`).
+    No kernel of the tracks may launch before."""
+    from ssrs_tpu_torch.potential.boundary import boundary_masks
+    handles = []
+    begin = sim._begin_potential_solve
+
+    def keep(conductivity):
+        handles.append(begin(conductivity))
+        return handles[-1]
+
+    sim._begin_potential_solve = keep
+    _reset_counts()
+    refused = None
+    try:
+        with probe.span('solve_or_refuse'):
+            sim.simulate_tracks()
+    except RuntimeError as err:
+        refused = str(err)
+    finally:
+        del sim._begin_potential_solve
+    if len(handles) != 1 or handles[0][0] != 'refined':
+        fail(f'large run: {len(handles)} solves, not one refined solve')
+    _, (_, dev_pot, rrel), info = handles.pop()
+    out = {'rrel': float(rrel), 'passes': info['passes'],
+           'vcycles': info['vcycles'], 'seconds': info['seconds'],
+           'refused': refused}
+    if refused is None:
+        return out
+    launched = _read_counts()
+    if any(launched.values()) or float(rrel) <= LARGE_RREL_MAX or \
+            f'stalled (rrel {float(rrel):.2e}) on a {LARGE_GRID[0]}x' \
+            f'{LARGE_GRID[1]} grid' not in refused:
+        fail(f'large run: refused with "{refused}" at rrel {float(rrel)}, '
+             f'launches {launched}')
+    pot = dev_pot.cpu().numpy()
+    del dev_pot
+    bmask, bvals = boundary_masks(float(sim.track_direction), pot.shape)
+    if pot.shape != LARGE_GRID or not np.isfinite(pot).all() or \
+            not np.array_equal(pot[bmask], bvals[bmask]):
+        fail(f'large run: stalled potential {pot.shape}, range '
+             f'{np.nanmin(pot)}..{np.nanmax(pot)}')
+    fname = sim._get_potential_fname(sim.case_ids[0], 0, sim.mode_data_dir)
+    np.save(f'{fname}.npy', pot)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _large_chunk_times(torch, run, dev):
+    """The chunk kernel on the large run's table (``run``, from
+    :func:`_run_table`), from the run's starts: one CHUNK_T-step launch
+    at step 0 and one at LARGE_LATE_STEP (the state brought there by
+    launches of the kernel), each timed three times from the same state
+    with the same uniforms. Returns, for each, the median ms, the live
+    agent-steps, the cells counted, ps a live agent-step and the bound of
+    :func:`_chunk_bound`."""
+    from ssrs_tpu_torch.agents.fused_chunk import fused_chunk
+    from ssrs_tpu_torch.agents.simulate import init_state
+    params, dirp, restr, table, starts = run
+    gen = torch.Generator(device=dev).manual_seed(2033)
+    state = init_state(params, starts, device=dev)
+    n = state.pos_r.shape[0]
+
+    def launch(st, u, s0):
+        fused_chunk(table, restr, dirp, st.pos_r, st.pos_c, st.mem,
+                    st.alive, st.palive, u, st.presence, s0=s0,
+                    nu=params.nu, memory_k=params.memory_k,
+                    burnin=params.burnin, nsteps=params.nsteps)
+
+    out = {}
+    s0 = 0
+    for key, at in (('first', 0), ('late', LARGE_LATE_STEP)):
+        while s0 < at:
+            launch(state, torch.rand((CHUNK_T, n), device=dev,
+                                     generator=gen), s0)
+            s0 += CHUNK_T
+        base = _fresh(torch, state)
+        u = torch.rand((CHUNK_T, n), device=dev, generator=gen)
+        times = []
+        for _ in range(3):
+            st = _fresh(torch, base)
+            ms, _ = _once_ms(torch, lambda: launch(st, u, at))
+            times.append(ms)
+        live = _live_steps(base, st)
+        cells = int((st.presence > 0).sum())
+        bound_ms, bound_by = _chunk_bound(n, params.memory_k,
+                                          9 * table.element_size(), live,
+                                          cells)
+        ms = float(np.median(times))
+        out[key] = {'step': at, 'ms': ms, 'times_ms': times, 'agents': n,
+                    'live_agent_steps': live, 'cells': cells,
+                    'ps_per_live_agent_step': ms * 1e9 / max(live, 1),
+                    'bound_ms': bound_ms, 'bound_by': bound_by}
+    return out
+
+
+def phase_large(torch, device_name, out):
+    """BASELINE.json's config 5 through the port's ``Simulator`` at full
+    size (LARGE_CONFIG: 6667x6667 cells, 100,000 tracks), in ``out``: the
+    ctor (the synthetic DEM reprojected, the Horn stencil, the updraft),
+    ``simulate_tracks()`` (the refined solve behind the 5e-3 net, the
+    bfloat16 table, the counts-only driver), ``compute_presence_map()``
+    and ``get_turbine_presence()`` on a fixture of turbines over the
+    region, each step timed with its peak device memory, the host's parts
+    of each timed on their own (:func:`_large_probe`).
+
+    The refined solve of this field stalls above the 5e-3 net, and past
+    ``potential_fallback_max_unknowns`` the ``Simulator`` then refuses the
+    run with ``RuntimeError``, as the JAX package does (ROADMAP.md section
+    3, fault 4). The phase gates that refusal: the message's grid and
+    rrel, and the stalled potential finite with its boundary exact. It
+    then writes that potential, which no check has accepted, into the
+    run's potential cache and calls ``simulate_tracks()`` again, so that
+    the tracks, the presence map and the turbines run at full size on
+    the card; their gates hold the port's mechanics, not the potential's
+    accuracy. A solve that ends inside the net saves its own potential
+    there, and the second call runs on it the same way.
+
+    Gates: the solve refined and either inside the net or refused as
+    above; one chunk launch a chunk and a flush launch a flush; the
+    counts' mass at least tracks x (burn-in + 1); the first chunk and its
+    flush exact against the plain versions; slope, aspect and updraft
+    card against CPU; the summary finite, max 1 and equal to the returned
+    map; every score the summary at its turbine's cell, and turbines.csv
+    the fixture's turbines in the bounds and tall enough."""
+    import ssrs_tpu_torch.simulator as sim_mod
+    from ssrs_tpu_torch import Config, Simulator
+    from ssrs_tpu_torch.data import read_csv, transform_coordinates
+    t_phase = time.perf_counter()
+    cfg = Config(out_dir=out, **LARGE_CONFIG)
+    fixture = _turbine_fixture(cfg)
+    real_tb = sim_mod.TurbinesUSWTB
+
+    class FixtureTB(real_tb):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, dataframe=dict(fixture), **kwargs)
+
+    probe = _large_probe(torch)
+    sim_mod.TurbinesUSWTB = FixtureTB
+    try:
+        with probe.span('ctor'):
+            sim = Simulator(cfg)
+        if tuple(sim.gridsize) != LARGE_GRID or sim._device_fields_fit(1):
+            fail(f'large run: grid {sim.gridsize}, device fields '
+                 f'{sim._device_fields_fit(1)}')
+        solve = _large_solve(torch, sim, probe)
+        _reset_counts()
+        with probe.span('simulate_tracks'):
+            sim.simulate_tracks()
+        launched = _read_counts()
+        with probe.span('presence_map'):
+            summary = sim.compute_presence_map()
+        with probe.span('turbines'):
+            scores = sim.get_turbine_presence()
+    finally:
+        sim_mod.TurbinesUSWTB = real_tb
+        probe.restore()
+    records = {r['phase']: r for r in sim.timer.records}
+    stats = probe.stats
+
+    # the potential the tracks ran on, from the cache: the solve's, or,
+    # after the refusal, the stalled one
+    pot_rec = records['potential']
+    ident = sim._get_id_string(sim.case_ids[0], 0)
+    pot = np.load(os.path.join(sim.mode_data_dir, f'{ident}_potential.npy'))
+    if pot_rec['solver'] != 'cache' or pot.shape != LARGE_GRID or \
+            (not solve['refused'] and not solve['rrel'] <= LARGE_RREL_MAX):
+        fail(f'large run: potential record {pot_rec}, solve {solve}')
+
+    # the tracks: the counts-only driver, its launches and mass
+    rec = records['tracks']
+    steps = rec['steps']
+    if rec['recorded'] or rec['devices'] != 1:
+        fail(f'large run: tracks record {rec}')
+    _check_chunk_launches('large run', launched, steps)
+    _check_flush_launches('large run', launched)
+    counts = np.load(os.path.join(sim.mode_data_dir, f'{ident}_counts.npy'))
+    floor = cfg.track_count * (sim.grid.burnin_length() + 1)
+    mass = int(counts.sum(dtype=np.int64))
+    if counts.shape != LARGE_GRID or counts.dtype != np.int32 or \
+            counts.min() < 0 or mass < floor:
+        fail(f'large run: counts {counts.dtype} {counts.shape}, mass {mass} '
+             f'< {floor}')
+    t0 = time.perf_counter()
+    on_card = torch.from_numpy(counts).cuda()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    on_card.cpu()
+    copy_s = (t1 - t0, time.perf_counter() - t1)
+    del on_card
+
+    # the presence map and the turbines
+    saved = np.load(os.path.join(sim.mode_data_dir, 'summary_presence.npy'))
+    if summary.shape != LARGE_GRID or not np.isfinite(summary).all() or \
+            summary.max() != 1.0 or \
+            not np.array_equal(saved, summary.astype(np.float32)):
+        fail('large run: summary_presence.npy is not the finite, '
+             'max-normalized returned map')
+    xs, ys = transform_coordinates('EPSG:4326', cfg.projected_crs,
+                                   fixture['xlong'], fixture['ylat'])
+    b = sim.bounds
+    inside = (xs >= b[0]) & (xs <= b[2]) & (ys >= b[1]) & (ys <= b[3])
+    keep = np.nonzero(inside & (fixture['t_hh']
+                                >= cfg.turbine_minimum_hubheight))[0]
+    table_csv = read_csv(os.path.join(sim.mode_data_dir, 'turbines.csv'))
+    if not np.array_equal(table_csv.index, keep) or \
+            not 0 < len(keep) < int(inside.sum()) < SNAPSHOT_TURBINES or \
+            not table_csv.equals(sim.turbines.dframe):
+        fail(f'large run: turbines.csv holds rows {list(table_csv.index)}, '
+             f'not {list(keep)}')
+    pres = scores['presence']
+    xgrid, ygrid = sim.get_terrain_grid()
+    at = summary[np.clip(np.searchsorted(ygrid, scores['y']), 0,
+                         LARGE_GRID[0] - 1),
+                 np.clip(np.searchsorted(xgrid, scores['x']), 0,
+                         LARGE_GRID[1] - 1)]
+    if len(scores) != len(keep) or sorted(scores.index) != list(keep) or \
+            (np.diff(pres) > 0).any() or np.abs(pres - at).max() > 1e-6:
+        fail(f'large run: turbine scores {pres}')
+
+    # the fields, card against CPU, and the kernels at these shapes
+    t0 = time.perf_counter()
+    fields, dem_s = _large_fields(torch, sim)
+    fields_s = time.perf_counter() - t0
+    crop = crop_against_direct(
+        torch, sim.load_updrafts(sim.case_ids[0], device=False)[0],
+        (LARGE_GRID[0] - LARGE_CROP) // 2, (LARGE_GRID[1] - LARGE_CROP) // 2,
+        LARGE_CROP, float(sim.track_direction), float(sim.potential_tol))
+    t0 = time.perf_counter()
+    run = _run_table(torch, sim)
+    err, n, live, cells, pending = _chunk_against_plain(
+        torch, sim, 'large run', run)
+    plain_s = time.perf_counter() - t0
+    chunk = _large_chunk_times(torch, run, sim.device)
+    del run
+    torch.cuda.empty_cache()
+
+    useful = rec['useful_steps']
+    say(f'large ctor {LARGE_GRID[0]}x{LARGE_GRID[1]}: '
+        f'{stats["ctor"]["seconds"]:.3f} s (peak '
+        f'{stats["ctor"]["peak_gb"]:.2f} GB): terrain '
+        f'{records["terrain"]["seconds"]:.3f} s, updrafts '
+        f'{records["updrafts"]["seconds"]:.3f} s; '
+        + probe.line('reproject', 'crs_transform', 'horn', 'updraft'))
+    say(f'large solve: rrel {solve["rrel"]:.3e}, {solve["vcycles"]} '
+        f'V-cycles, {solve["passes"]} passes, {solve["seconds"]:.3f} s ('
+        + probe.line('solve', 'island_labels', 'levels', 'island_segments',
+                     'coarsen_labels', 'refine', 'net_and_copy')
+        + '); ' + (f'refused by the net, as in the JAX package: '
+                   f'"{solve["refused"][:120]}..."; the tracks ran on this '
+                   'stalled potential from the cache, which no check has '
+                   'accepted' if solve['refused'] else 'inside the net')
+        + f'; potential {pot.min():.4g}..{pot.max():.4g}, finite, boundary '
+        f'exact; its {LARGE_CROP}x{LARGE_CROP} centre solved alone on the '
+        f'card: rrel {crop["rrel"]:.3e}, {crop["vcycles"]} V-cycles, '
+        f'{crop["seconds"]:.3f} s, against the host direct solve '
+        f'({crop["direct_s"]:.3f} s) max |diff| '
+        f'{crop["max_abs_vs_direct"]:.4g}, mean '
+        f'{crop["mean_abs_vs_direct"]:.4g}')
+    say(f'large tracks: {cfg.track_count} tracks, {steps} steps, {useful} '
+        f'agent-steps in {rec["seconds"]:.3f} s = '
+        f'{useful / rec["seconds"]:.4g} agent-steps/s; '
+        f'{launched["fused_chunk"]} chunk launches, {launched["flushes"]} '
+        f'flushes through {launched["presence_flush"]} flush launches; '
+        + probe.line('simulate_tracks', 'table', 'driver')
+        + f'; counts {mass} >= {floor}; map to the card {copy_s[0]:.3f} s, '
+        f'back {copy_s[1]:.3f} s')
+    say(f'large presence_map (krad {sim._presence_kernel_radius(1000.)}): '
+        + probe.line('presence_map', 'smooth', 'summary_save')
+        + '; summary finite, max 1, equal to summary_presence.npy')
+    say(f'large turbines: {SNAPSHOT_TURBINES} in the fixture, '
+        f'{int(inside.sum())} inside the bounds, {len(keep)} scored '
+        f'{pres.max():.4f}..{pres.min():.4f}, each the summary at its '
+        'cell; ' + probe.line('turbines'))
+    say(f'large kernels: the first {CHUNK_T}-step chunk ({n} agents, {live} '
+        f'live agent-steps, {cells} cells) and its flush ({pending} pending) '
+        f'exact against the plain versions ({plain_s:.3f} s with the '
+        'table); chunk ' + '; '.join(
+            f'{k} (step {v["step"]}) {v["ms"]:.1f} ms for '
+            f'{v["live_agent_steps"]} live agent-steps in {v["cells"]} '
+            f'cells = {v["ps_per_live_agent_step"]:.1f} ps each, bound '
+            f'{v["bound_ms"] * 1e3:.1f} us ({v["bound_by"]})'
+            for k, v in chunk.items())
+        + f'; fields card vs CPU in {LARGE_BAND_ROWS}-row bands: max |diff| '
+        f'slope {fields["slope"]:.3g}, aspect {fields["aspect"]:.3g}, '
+        f'updraft {fields["updraft"]:.3g} ({fields_s:.1f} s, the DEM '
+        f'again from the Simulator\'s cache in {dem_s:.3f} s); phase '
+        f'{time.perf_counter() - t_phase:.1f} s on {device_name}')
+    return launched, {
+        'grid': list(LARGE_GRID), 'tracks': cfg.track_count,
+        'steps': steps, 'useful_steps': useful,
+        'tracks_s': rec['seconds'],
+        'potential': {k: solve[k] for k in (
+            'rrel', 'passes', 'vcycles', 'seconds', 'refused')},
+        'crop': crop, 'dem_cached_s': dem_s,
+        'probe': stats, 'map_copy_s': copy_s,
+        'chunk_max_abs_err': err, 'flush_pending': pending,
+        'chunk': chunk, 'fields_max_abs_err': fields,
+        'turbines': {'fixture': SNAPSHOT_TURBINES,
+                     'inside': int(inside.sum()), 'scored': len(keep)},
+        'phase_s': time.perf_counter() - t_phase}
+
+
 def _check_imports(offline, packages):
     """Fails if a module of ``packages`` was imported, or a ``requests``
     other than the script's own refusing one."""
@@ -3951,6 +4482,7 @@ def main() -> int:
         snapshot_run, snapshot = phase_snapshot(torch, name, out, template)
         cli_run, cli = phase_cli(torch, name, out, main_saved)
         sharded_run, sharded = phase_sharded(torch, name, out, sim, solver)
+        large_run, large = phase_large(torch, name, out)
         # the port took in no pandas up to here; the notebooks' cells
         # import it themselves
         _check_imports(offline, ('jax', 'jaxlib', 'ssrs_tpu', 'pandas'))
@@ -3989,12 +4521,15 @@ def main() -> int:
         'path': 'uniform run (simulate_presence_compacting)',
         'launches': main_run['fused_chunk'],
         'max_abs_err': max(chunk_err, no_table['max_abs_err'],
-                           cli_chunk_err, sharded['chunk_max_abs_err']),
+                           cli_chunk_err, sharded['chunk_max_abs_err'],
+                           large['chunk_max_abs_err']),
         'ms': engine['chunk_ms'],
         'plain_ms': engine['plain_ms'], 'bound_ms': engine['bound_ms'],
         'bound_by': engine['bound_by'], 'library_ms': None,
         'steps': CHUNK_T, 'per_step_ms': engine['per_step_device_ms'],
         'uniform_draw_ms': engine['uniform_draw_ms'],
+        # the large run's table (6667x6667, bf16), first and late chunk
+        'large': large['chunk'],
         # the branch without a table (the directed random walk), on
         # synthetic states at the same width
         'no_table': no_table}, {
@@ -4013,6 +4548,7 @@ def main() -> int:
         'bound_ms': flush_real['bound_ms'],
         'bound_by': flush_real['bound_by'],
         'library_ms': flush_real['library_ms'],
+        'bincount_ms': flush_real['bincount_ms'],
         'host_ms': flush_real['host_ms'],
         'old_flush_ms': flush_real['old_flush_ms'],
         'old_flush_host_ms': flush_real['old_flush_host_ms'],
@@ -4025,7 +4561,7 @@ def main() -> int:
         'launches': main_run['presence_histogram'],
         **{k: hist['presence_histogram'][k] for k in (
             'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
-            'library_ms')}}, {
+            'library_ms', 'bincount_ms')}}, {
         # times on the recorded run's own .pkl points; beside them the
         # 6.4M synthetic points, each kernel in turns
         'name': 'presence_histogram_batch', 'route': 'cuda',
@@ -4036,11 +4572,11 @@ def main() -> int:
         'max_abs_err': max(count_real['max_abs_err'],
                            count_syn['max_abs_err'], cli_count_err),
         **{k: count_real[k] for k in (
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'plan',
-            'kernels_ms', 'host_ms')},
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+            'bincount_ms', 'plan', 'kernels_ms', 'host_ms')},
         'synthetic': {k: count_syn[k] for k in (
-            'ms', 'plain_ms', 'bound_ms', 'library_ms', 'plan',
-            'kernels_ms')}}]
+            'ms', 'plain_ms', 'bound_ms', 'library_ms', 'bincount_ms',
+            'plan', 'kernels_ms')}}]
     for k in kernels:
         # launches: the run of the kernel's own path (above), counted from
         # 0 just before it; beside it the 100,000-track uniform run and the
@@ -4058,7 +4594,8 @@ def main() -> int:
                      'launches_snapshot_run': snapshot_run,
                      'launches_cli_run': cli_run,
                      'launches_solver_options': options_run,
-                     'launches_notebooks_run': notebooks_run}
+                     'launches_notebooks_run': notebooks_run,
+                     'launches_large_run': large_run}
         for key, counted in new_paths.items():
             k[key] = counted[k['name']]
             if k[key] < 1 and k['name'] in ('fused_chunk', 'presence_flush'):
@@ -4091,7 +4628,7 @@ def main() -> int:
              'solver_options': options,
              'thermals_run': thermals_path, 'drw': drw,
              'seasonal': seasonal, 'snapshot': snapshot, 'cli': cli,
-             'sharded': sharded, 'notebooks': notebooks}
+             'sharded': sharded, 'notebooks': notebooks, 'large': large}
     print(json.dumps({'solver': solver, 'engine': engine, 'count': count,
                       'cases': cases}), flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -512,30 +512,35 @@ def vcycle(levels: List[LapLevel], rhs: torch.Tensor,
     row-sharded level meets one on a single device, the restricted
     residual is gathered onto the first device and the correction cut
     back into the blocks."""
+    return _cycle(levels, 0, u0, rhs)
 
-    def cycle(idx: int, u: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-        level = levels[idx]
-        if idx == len(levels) - 1:
-            u = _smooth(level, u, rhs, _COARSE_SWEEPS)
-            return _deflate(level, u, rhs)
-        u = _smooth(level, u, rhs, _NU1)
-        u = _deflate(level, u, rhs)
-        r = (rhs - _apply_lap(level.planes, u)) * level.notb
-        coarse = levels[idx + 1]
-        r_c = _each(_restrict, r)
-        blocks = None
-        if torch.is_tensor(coarse.notb) and not torch.is_tensor(r_c):
-            blocks, r_c = r_c, r_c.gather()
-        r_c = r_c * coarse.notb
-        e_c = cycle(idx + 1, _each(torch.zeros_like, r_c), r_c)
-        if blocks is not None:
-            e_c = blocks.split_like(e_c)
-        pe = _each(lambda e, f: _prolong_pc(e, f.shape), e_c, u)
-        u = u + _KAPPA * pe * level.notb
-        u = _deflate(level, u, rhs)
-        return _smooth(level, u, rhs, _NU2)
 
-    return cycle(0, u0, rhs)
+def _cycle(levels: List[LapLevel], idx: int, u: torch.Tensor,
+           rhs: torch.Tensor) -> torch.Tensor:
+    """The V-cycle from level ``idx`` down. A module function, not a
+    closure: a closure that calls itself is a reference cycle, which
+    would keep a finished solve's levels (~5 GB at 6667^2) alive until
+    Python's cyclic collector runs."""
+    level = levels[idx]
+    if idx == len(levels) - 1:
+        u = _smooth(level, u, rhs, _COARSE_SWEEPS)
+        return _deflate(level, u, rhs)
+    u = _smooth(level, u, rhs, _NU1)
+    u = _deflate(level, u, rhs)
+    r = (rhs - _apply_lap(level.planes, u)) * level.notb
+    coarse = levels[idx + 1]
+    r_c = _each(_restrict, r)
+    blocks = None
+    if torch.is_tensor(coarse.notb) and not torch.is_tensor(r_c):
+        blocks, r_c = r_c, r_c.gather()
+    r_c = r_c * coarse.notb
+    e_c = _cycle(levels, idx + 1, _each(torch.zeros_like, r_c), r_c)
+    if blocks is not None:
+        e_c = blocks.split_like(e_c)
+    pe = _each(lambda e, f: _prolong_pc(e, f.shape), e_c, u)
+    u = u + _KAPPA * pe * level.notb
+    u = _deflate(level, u, rhs)
+    return _smooth(level, u, rhs, _NU2)
 
 
 # ---- Krylov --------------------------------------------------------------------

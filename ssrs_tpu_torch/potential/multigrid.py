@@ -122,20 +122,25 @@ def vcycle(levels: List[MGLevel], rhs: torch.Tensor, u0: torch.Tensor,
            omega: float = 0.8, nu1: int = 2, nu2: int = 2,
            coarse_sweeps: int = 64) -> torch.Tensor:
     """One V-cycle on L u = rhs."""
+    return _cycle(levels, 0, u0, rhs, omega, nu1, nu2, coarse_sweeps)
 
-    def cycle(idx: int, u: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-        level = levels[idx]
-        if idx == len(levels) - 1:
-            return _smooth(level, u, rhs, omega, coarse_sweeps)
-        u = _smooth(level, u, rhs, omega, nu1)
-        r = _residual(level, u, rhs)
-        coarse = levels[idx + 1]
-        r_c = _coarsen_field(r) * coarse.notb
-        e_c = cycle(idx + 1, torch.zeros_like(r_c), r_c)
-        u = u + _prolong(e_c, level.shape) * level.notb
-        return _smooth(level, u, rhs, omega, nu2)
 
-    return cycle(0, u0, rhs)
+def _cycle(levels: List[MGLevel], idx: int, u: torch.Tensor,
+           rhs: torch.Tensor, omega: float, nu1: int, nu2: int,
+           coarse_sweeps: int) -> torch.Tensor:
+    """The V-cycle from level ``idx`` down; a module function, as
+    ``lap._cycle``, so that no reference cycle keeps the levels alive."""
+    level = levels[idx]
+    if idx == len(levels) - 1:
+        return _smooth(level, u, rhs, omega, coarse_sweeps)
+    u = _smooth(level, u, rhs, omega, nu1)
+    r = _residual(level, u, rhs)
+    coarse = levels[idx + 1]
+    r_c = _coarsen_field(r) * coarse.notb
+    e_c = _cycle(levels, idx + 1, torch.zeros_like(r_c), r_c, omega, nu1,
+                 nu2, coarse_sweeps)
+    u = u + _prolong(e_c, level.shape) * level.notb
+    return _smooth(level, u, rhs, omega, nu2)
 
 
 def solve_potential_mg(conductivity, bmask, bvals, tol: float = 1e-6,

@@ -173,6 +173,7 @@ class Simulator(PlottingMixin, Config):
         # terrain layers (ssrs/simulator.py:87-99), with the offline
         # synthetic fallback appended to the reference's 3DEP->SRTM chain
         self.region = Terrain(self.lonlat_bounds, self.data_dir)
+        self._terrain_rasters = {}  # reprojected layers, by raster path
         with self.timer.phase('terrain'):
             self._setup_terrain()
 
@@ -258,11 +259,15 @@ class Simulator(PlottingMixin, Config):
                 self.region.download(list(self.terrain_layers.values()))
 
     def get_terrain_layer(self, lname: str) -> np.ndarray:
-        """A terrain layer on the run grid (float64, lower-left origin)."""
-        return get_raster_in_projected_crs(
-            self.region.get_raster_fpath(self.terrain_layers[lname]),
-            self.bounds, self.gridsize, self.resolution,
-            self.projected_crs)
+        """A terrain layer on the run grid (float64, lower-left origin).
+        Each raster is reprojected once a ``Simulator`` (on the host: ~30 s
+        at 6667x6667, PERF.md); later calls return a copy."""
+        fpath = self.region.get_raster_fpath(self.terrain_layers[lname])
+        if fpath not in self._terrain_rasters:
+            self._terrain_rasters[fpath] = get_raster_in_projected_crs(
+                fpath, self.bounds, self.gridsize, self.resolution,
+                self.projected_crs)
+        return self._terrain_rasters[fpath].copy()
 
     def get_terrain_elevation(self) -> np.ndarray:
         return self.get_terrain_layer('Elevation')
@@ -578,7 +583,7 @@ class Simulator(PlottingMixin, Config):
         if not bool(self.fields_device):
             return False
         cells = int(np.prod(self.gridsize))
-        if cells > 4096 * 4096:
+        if cells > _LARGE_GRID_CELLS:
             return False
         return cells * max(1, n_fields) * 8 <= 1_500_000_000
 
@@ -597,7 +602,8 @@ class Simulator(PlottingMixin, Config):
         finish = (self._finish_directional_potential_pair if pairs
                   else self.finish_directional_potential)
         out = []
-        depth = 3 if int(np.prod(self.gridsize)) <= 4096 * 4096 else 1
+        depth = 3 if int(np.prod(self.gridsize)) <= _LARGE_GRID_CELLS \
+            else 1
         cap = self._potential_batch_cap()
         if cap > 1 and len(items) > 1:
             depth = 4 * cap
@@ -1095,6 +1101,11 @@ class Simulator(PlottingMixin, Config):
         return (f's{int(self.uniform_windspeed)}'
                 f'd{int(self.uniform_winddirn)}')
 
+
+# the JAX package's large-grid boundary (4096^2 cells): past it the prep
+# never parks fields on the device (Simulator._device_fields_fit) and holds
+# one unfinished solve at a time (Simulator._prepare_potentials)
+_LARGE_GRID_CELLS = 4096 * 4096
 
 # Simulator._potential_batch_cap: the refined solve's peak device memory
 # a cell and case, above what was allocated before it, and the share of
