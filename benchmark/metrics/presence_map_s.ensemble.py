@@ -1,0 +1,8 @@
+"""Seconds of the ``presence_map`` record a job, averaged over the
+window."""
+
+from benchmark.readers import mean_phase
+
+
+def read(ctx):
+    return mean_phase(ctx, 'presence_map')
