@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.timing import read_host
 from ..native import make_builder
 from .fused_chunk import MAX_MEMORY_K, fused_chunk
 from .fused_step import alive_and_push, fused_step
@@ -610,13 +611,19 @@ def simulate_presence_compacting(params: TrackParams, start_rc,
         cur = state.pos_r.shape[0]
         state = advance(state, min(chunk, params.nsteps - state.step),
                         generator)
-        n_alive = int(state.alive.sum())
+        n_alive = _alive_count(state.alive.sum())
         if auto is not None:
             auto.observe(time.perf_counter() - t0, cur)
         state = _shrink(state, n_alive, floor, min_bucket)
         floor = _auto_floor(auto, state, cur, floor)
     state = flush_pending(state)
     return state.presence, state.step
+
+
+def _alive_count(count: torch.Tensor) -> int:
+    """A compacting driver's alive count on the host, the seconds the host
+    waited for the card counted on the open span (``alive_wait_s``)."""
+    return int(read_host(count, 'alive_wait_s'))
 
 
 def _shrink(state: SimState, n_alive: int, floor: int,
@@ -777,7 +784,7 @@ def simulate_presence_cases_compacting(params: TrackParams, base_tables,
         # reads and packs the earlier ones
         still = []
         for i in active:
-            n_alive = int(counts[i])
+            n_alive = _alive_count(counts[i])
             if states[i].step >= params.nsteps or n_alive == 0:
                 states[i] = flush_pending(states[i])
             else:

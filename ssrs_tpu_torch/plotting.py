@@ -287,7 +287,7 @@ class PlottingMixin:
         Simulator.compute_presence_map so the two paths cannot drift."""
         summary_prob = summary_prob / np.amax(summary_prob)
         fname = os.path.join(self.mode_data_dir, 'summary_presence')
-        np.save(f'{fname}.npy', summary_prob.astype(np.float32))
+        self._save('summary', f'{fname}.npy', summary_prob.astype(np.float32))
         return summary_prob
 
     def _case_presence(self, case_id, krad: int, each=None):

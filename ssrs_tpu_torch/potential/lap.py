@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from ..agents.moves import NEIGHBOR_DELTAS
+from ..core.timing import count, read_host, span
 from .solver import _DIRS, _on_device, _shift, weight_planes
 
 _DELTAS = [(int(NEIGHBOR_DELTAS[m, 0]), int(NEIGHBOR_DELTAS[m, 1]))
@@ -116,10 +117,16 @@ def _keep(active, new, old):
     return torch.where(active, new, old) if _is_batch(old) else new
 
 
+def _fetch(x: torch.Tensor) -> np.ndarray:
+    """``x`` on the host, the seconds the host waited counted as
+    ``read_wait_s`` on the solve's ``potential.solve`` span."""
+    return read_host(x, 'read_wait_s', on='potential.solve').numpy()
+
+
 def _host(x) -> np.ndarray:
     """A per-case device value (a scalar, or a batch's (C, 1, 1)) on the
     host, shaped (cases,)."""
-    return x.reshape(-1).cpu().numpy()
+    return _fetch(x.reshape(-1))
 
 
 # ---- operator ---------------------------------------------------------------
@@ -561,7 +568,8 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
     The history is a ring of the last ``_GCR_K`` directions, oldest
     first, as JAX's shifted buffer (whose empty slots contribute exact
     zeros). The exit test reads one device value per iteration, the
-    only host sync of an iteration.
+    only host sync of an iteration: each iteration (the span
+    ``potential.iteration``) ends with the next one's test.
 
     On a batch the test is per case, as under JAX's ``vmap`` of the
     loop: the loop runs while any case goes on, and a case that has
@@ -585,8 +593,10 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
     rn = rn_prev = snorm(rhs)
     its = np.zeros(rn.numel(), np.int64)
     it = 0
-    while it < maxiter:
-        # every case still going has run all ``it`` iterations
+
+    def exit_test():
+        """(go, go on the host): the cases that run iteration ``it``;
+        every case still going has run all ``it`` before it."""
         go = rn > tol_abs
         if it >= 8:
             # exit at the float32 floor: past the slow start (~0.97 per
@@ -594,28 +604,32 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
             go = go & (rn < 0.995 * rn_prev)
         if active is not None:
             go = go & active
-        going = _host(go)
-        if not going.any():
-            break
-        its += going
-        r = (rhs - _apply_lap(top.planes, x)) * notb
-        z = vcycle(levels, r, _each(torch.zeros_like, x)) * notb
-        q = _apply_lap(top.planes, z) * notb
-        for zi, qi in hist:
-            beta = sdot(q, qi)
-            z = z - beta * zi
-            q = q - beta * qi
-        nrm2 = sdot(q, q)
-        inv = torch.where(nrm2 > 0, torch.rsqrt(nrm2 + 1e-38), 0.)
-        z, q = z * inv, q * inv
-        alpha = sdot(r, q)
-        x = _keep(go, x + alpha * z, x)
-        hist.append((z, q))
-        rn_new = snorm((rhs - _apply_lap(top.planes, x)) * notb)
-        rn_prev, rn = _keep(go, rn, rn_prev), _keep(go, rn_new, rn)
-        if _is_batch(x):
-            active = go
-        it += 1
+        return go, _host(go)
+
+    stop = np.zeros(rn.numel(), bool)
+    go, going = exit_test() if maxiter > 0 else (None, stop)
+    while going.any():
+        with span('potential.iteration'):
+            its += going
+            r = (rhs - _apply_lap(top.planes, x)) * notb
+            z = vcycle(levels, r, _each(torch.zeros_like, x)) * notb
+            q = _apply_lap(top.planes, z) * notb
+            for zi, qi in hist:
+                beta = sdot(q, qi)
+                z = z - beta * zi
+                q = q - beta * qi
+            nrm2 = sdot(q, q)
+            inv = torch.where(nrm2 > 0, torch.rsqrt(nrm2 + 1e-38), 0.)
+            z, q = z * inv, q * inv
+            alpha = sdot(r, q)
+            x = _keep(go, x + alpha * z, x)
+            hist.append((z, q))
+            rn_new = snorm((rhs - _apply_lap(top.planes, x)) * notb)
+            rn_prev, rn = _keep(go, rn, rn_prev), _keep(go, rn_new, rn)
+            if _is_batch(x):
+                active = go
+            it += 1
+            go, going = exit_test() if it < maxiter else (go, stop)
     return x, rn, its
 
 
@@ -631,8 +645,9 @@ def _solve_refined_core(cond: torch.Tensor, bmask: torch.Tensor,
     # the preconditioner hierarchy on the SYMMETRIZED operator; the
     # refinement residuals use the TRUE planes, so the solution solves
     # the reference's system
-    levels = build_lap_levels(symmetrize_planes(planes_t), bmask, labels,
-                              k + 1)
+    with span('potential.levels'):
+        levels = build_lap_levels(symmetrize_planes(planes_t), bmask,
+                                  labels, k + 1)
     u0 = None
     if init is not None:
         # warm start, sanitized so a pathological prior solve can only
@@ -709,23 +724,28 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
             (rn > target) | (lev > lev_target)) & (stall < 3)
         if not going.any():
             break
-        active = torch.as_tensor(going, device=u.device).view(-1, 1, 1) \
-            if batch else None
-        r = resid(u)
-        tol_abs = torch.clamp(0.02 * scaled_norm(r), min=floor)
-        delta, _, its = _gcr_solve(levels, r.to(torch.float32), maxcycles,
-                                   tol_abs.to(torch.float32), active)
-        cycles += its
-        u_new = u + (delta * top.notb).to(torch.float64)
-        if k:
-            u_new = u_new + _spread(island_coeff(resid(u_new)),
-                                    top.seg.labels) * notb64
-        u = _keep(active, u_new, u)
-        r = resid(u)
-        lev_t = _island_max(island_coeff(r).abs(), top.seg) if k else \
-            torch.zeros(n, dtype=torch.float64, device=u0_cold.device)
-        rn_t, lev_t = torch.stack([scaled_norm(r).reshape(-1),
-                                   lev_t.reshape(-1)]).cpu().numpy()
+        with span('potential.pass'):
+            active = torch.as_tensor(going, device=u.device).view(
+                -1, 1, 1) if batch else None
+            r = resid(u)
+            tol_abs = torch.clamp(0.02 * scaled_norm(r), min=floor)
+            delta, _, its = _gcr_solve(levels, r.to(torch.float32),
+                                       maxcycles, tol_abs.to(torch.float32),
+                                       active)
+            cycles += its
+            # the GCR's loop turns: a batch's case that goes on has run
+            # every turn
+            count('iterations', int(its.max()), on='potential.solve')
+            u_new = u + (delta * top.notb).to(torch.float64)
+            if k:
+                u_new = u_new + _spread(island_coeff(resid(u_new)),
+                                        top.seg.labels) * notb64
+            u = _keep(active, u_new, u)
+            r = resid(u)
+            lev_t = _island_max(island_coeff(r).abs(), top.seg) if k else \
+                torch.zeros(n, dtype=torch.float64, device=u0_cold.device)
+            rn_t, lev_t = _fetch(torch.stack([scaled_norm(r).reshape(-1),
+                                              lev_t.reshape(-1)]))
         rn = np.where(going, rn_t, rn)
         lev = np.where(going, lev_t, lev)
         stall = np.where(going, np.where(rn < 0.9 * best, 0, stall + 1),
@@ -759,13 +779,14 @@ def solve_potential_refined(conductivity, bmask, bvals, tol: float = 1e-7,
     ``init`` optionally warm-starts the refinement (non-finite values
     are replaced). ``stats``, a dict, receives ``passes`` (refinement
     passes) and ``vcycles``."""
-    cond = _on_device(conductivity, device, 'solve_potential_refined')
-    bmask = torch.as_tensor(bmask, device=cond.device).to(torch.bool)
-    bvals = torch.as_tensor(bvals, device=cond.device).to(torch.float32)
-    labels, k = island_labels((cond > 0).cpu().numpy(),
-                              bmask.cpu().numpy())
-    pot, rrel, passes, cycles = _solve_refined_core(
-        cond, bmask, bvals, labels, k, tol, maxcycles, init)
+    with span('potential.solve'):
+        cond = _on_device(conductivity, device, 'solve_potential_refined')
+        bmask = torch.as_tensor(bmask, device=cond.device).to(torch.bool)
+        bvals = torch.as_tensor(bvals, device=cond.device).to(torch.float32)
+        with span('potential.labels'):
+            labels, k = island_labels(_fetch(cond > 0), _fetch(bmask))
+        pot, rrel, passes, cycles = _solve_refined_core(
+            cond, bmask, bvals, labels, k, tol, maxcycles, init)
     if stats is not None:
         stats.update(passes=passes, vcycles=cycles)
     return pot, rrel
@@ -792,22 +813,23 @@ def solve_potential_refined_batch(conductivities, bmask, bvals,
     shared. Returns (potentials float32 (C, nrow, ncol) tensor, rrel
     float64 (C,) numpy). ``stats``, a dict, receives per-case lists
     ``passes`` and ``vcycles``."""
-    if torch.is_tensor(conductivities):
-        cond = conductivities.to(torch.float32)
-    else:
-        fields = list(conductivities)
-        dev = fields[0].device if torch.is_tensor(fields[0]) else device
-        cond = torch.stack([_on_device(c, dev,
-                                       'solve_potential_refined_batch')
-                            for c in fields])
-    n_cases = cond.shape[0]
-    bmask = torch.as_tensor(bmask, device=cond.device).to(torch.bool)
-    bvals = torch.as_tensor(bvals, device=cond.device).to(torch.float32)
-    labels, k = batch_island_labels((cond > 0).cpu().numpy(),
-                                    bmask.cpu().numpy())
-    pots, rrel, passes, cycles = _solve_refined_core(
-        cond, bmask, bvals.expand(n_cases, -1, -1), labels, k, tol,
-        maxcycles)
+    with span('potential.solve'):
+        if torch.is_tensor(conductivities):
+            cond = conductivities.to(torch.float32)
+        else:
+            fields = list(conductivities)
+            dev = fields[0].device if torch.is_tensor(fields[0]) else device
+            cond = torch.stack([_on_device(c, dev,
+                                           'solve_potential_refined_batch')
+                                for c in fields])
+        n_cases = cond.shape[0]
+        bmask = torch.as_tensor(bmask, device=cond.device).to(torch.bool)
+        bvals = torch.as_tensor(bvals, device=cond.device).to(torch.float32)
+        with span('potential.labels'):
+            labels, k = batch_island_labels(_fetch(cond > 0), _fetch(bmask))
+        pots, rrel, passes, cycles = _solve_refined_core(
+            cond, bmask, bvals.expand(n_cases, -1, -1), labels, k, tol,
+            maxcycles)
     if stats is not None:
         stats.update(passes=passes.tolist(), vcycles=cycles.tolist())
     return pots, rrel

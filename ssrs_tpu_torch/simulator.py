@@ -120,6 +120,13 @@ class Simulator(PlottingMixin, Config):
     def __init__(self, in_config: Config = None, device='cuda',
                  **kwargs) -> None:
         devices = _devices(device)
+        self.timer = PhaseTimer(device=devices[0])
+        with self.timer.span('init'):
+            self._construct(in_config, devices, kwargs)
+
+    def _construct(self, in_config, devices, kwargs) -> None:
+        """The construction (ssrs/simulator.py:36-142), inside the
+        ``init`` span."""
         if in_config is None:
             super().__init__(**kwargs)
         else:
@@ -131,7 +138,6 @@ class Simulator(PlottingMixin, Config):
               f'{len(self.mesh)}) in {self.sim_mode} mode')
         print(f'Run name: {self.run_name}')
 
-        self.timer = PhaseTimer(device=self.device)
         self._rng = np.random.default_rng(
             self.sim_seed if self.sim_seed >= 0 else None)
         if self.sim_seed >= 0:
@@ -149,7 +155,8 @@ class Simulator(PlottingMixin, Config):
         # config dump (ssrs/simulator.py:63-67)
         fpath = os.path.join(self.out_dir, self.run_name,
                              f'{self.run_name}.json')
-        with open(fpath, 'w', encoding='utf-8') as cfile:
+        with self.timer.span('save.config'), \
+                open(fpath, 'w', encoding='utf-8') as cfile:
             json.dump({k: v for k, v in self.__dict__.items()
                        if not k.startswith('_') and _jsonable(v)},
                       cfile, ensure_ascii=False, indent=2, default=str)
@@ -264,9 +271,10 @@ class Simulator(PlottingMixin, Config):
         at 6667x6667, PERF.md); later calls return a copy."""
         fpath = self.region.get_raster_fpath(self.terrain_layers[lname])
         if fpath not in self._terrain_rasters:
-            self._terrain_rasters[fpath] = get_raster_in_projected_crs(
-                fpath, self.bounds, self.gridsize, self.resolution,
-                self.projected_crs)
+            with self.timer.span('terrain.reproject'):
+                self._terrain_rasters[fpath] = get_raster_in_projected_crs(
+                    fpath, self.bounds, self.gridsize, self.resolution,
+                    self.projected_crs)
         return self._terrain_rasters[fpath].copy()
 
     def get_terrain_elevation(self) -> np.ndarray:
@@ -326,7 +334,8 @@ class Simulator(PlottingMixin, Config):
         orograph = self._orograph(slope, aspect, self.uniform_winddirn)
         fname = self._get_orograph_fname(self.case_ids[0],
                                          self.mode_data_dir)
-        np.save(f'{fname}.npy', orograph.cpu().numpy().astype(np.float32))
+        self._save('orographs', f'{fname}.npy',
+                   orograph.cpu().numpy().astype(np.float32))
 
     def compute_orographic_updrafts_using_wtk(self) -> None:
         """Per-datetime WTK-interpolated updrafts
@@ -350,8 +359,8 @@ class Simulator(PlottingMixin, Config):
                 torch.from_numpy(wdirn.astype(np.float32)).to(self.device),
                 slope, aspect)
             fname = self._get_orograph_fname(case_id, self.mode_data_dir)
-            np.save(f'{fname}.npy',
-                    orograph.cpu().numpy().astype(np.float32))
+            self._save('orographs', f'{fname}.npy',
+                       orograph.cpu().numpy().astype(np.float32))
         print(f'took {elapsed_str(start_time)}', flush=True)
 
     def compute_thermal_updrafts(self, case_id: str) -> None:
@@ -416,7 +425,8 @@ class Simulator(PlottingMixin, Config):
         id_str = self._get_id_string(case_id, real_id)
         start_time = time.time()
         try:
-            potential = np.load(f'{fname}.npy')
+            with self.timer.span('potential.load'):
+                potential = np.load(f'{fname}.npy')
             if potential.shape != tuple(self.gridsize):
                 raise FileNotFoundError
             if (self.sim_seed < 0) and (real_id != 0):
@@ -564,14 +574,14 @@ class Simulator(PlottingMixin, Config):
         if kind != 'cached':
             print(f'{id_str}: Computing potential..'
                   f'took {elapsed_str(start_time)}', flush=True)
-            np.save(f'{fname}.npy', potential.astype(np.float32))
+            self._save('potential', f'{fname}.npy',
+                       potential.astype(np.float32))
         if np.isnan(potential).any():
             print('NANs found in potential!')
         info = dict(handle[-1])
-        self.timer.records.append({
-            'phase': 'potential',
-            'seconds': info.pop('seconds', 0.) + time.time() - t0,
-            'id': id_str, **info})
+        self.timer.add('potential',
+                       info.pop('seconds', 0.) + time.time() - t0,
+                       start_time * 1e9, id=id_str, **info)
         return potential, dev
 
     def _device_fields_fit(self, n_fields: int) -> bool:
@@ -829,7 +839,7 @@ class Simulator(PlottingMixin, Config):
                         pickle.dump(run.tracks, fobj)
             fname = self._get_counts_fname(case_id, real_id,
                                            self.mode_data_dir)
-            np.save(f'{fname}.npy', presence.astype(np.int32))
+            self._save('counts', f'{fname}.npy', presence.astype(np.int32))
 
     def _tail_bucket(self):
         return int(self.track_tail_bucket) \
@@ -907,7 +917,7 @@ class Simulator(PlottingMixin, Config):
         for i, (case_id, real_id, _, _) in enumerate(work):
             fname = self._get_counts_fname(case_id, real_id,
                                            self.mode_data_dir)
-            np.save(f'{fname}.npy', presence[i])
+            self._save('counts', f'{fname}.npy', presence[i])
 
     def simulate_direction_sweep(self, wind_dirns) -> List[str]:
         """Uniform-mode wind-direction sweep: one updraft field,
@@ -915,7 +925,13 @@ class Simulator(PlottingMixin, Config):
         populations advancing together through the multi-case driver.
         Only valid in uniform mode. Returns the new case ids
         (``s{speed}d{dirn}``); artifacts follow the standard naming, so
-        the presence map works unchanged."""
+        the presence map works unchanged. One ``direction_sweep`` span."""
+        with self.timer.span('direction_sweep', cases=len(wind_dirns)):
+            new_cases = self._direction_sweep(wind_dirns)
+        self._dump_phase_timings()
+        return new_cases
+
+    def _direction_sweep(self, wind_dirns) -> List[str]:
         if self.sim_mode.lower() != 'uniform':
             raise ValueError('direction sweep requires uniform mode')
         slope, aspect = self._slope_aspect()
@@ -929,8 +945,8 @@ class Simulator(PlottingMixin, Config):
             for case_id, oro in zip(new_cases, oros):
                 fname = self._get_orograph_fname(case_id,
                                                  self.mode_data_dir)
-                np.save(f'{fname}.npy',
-                        oro.cpu().numpy().astype(np.float32))
+                self._save('orographs', f'{fname}.npy',
+                           oro.cpu().numpy().astype(np.float32))
 
         if not dev_fields:
             # the host flow reloads the artifacts through load_updrafts,
@@ -960,15 +976,19 @@ class Simulator(PlottingMixin, Config):
                 if dev_fields:
                     save_orographs()
         self._simulate_batched(params, starts, work)
-        self._dump_phase_timings()
         return new_cases
 
     def _dump_phase_timings(self) -> None:
-        """Structured phase log (``phase_timings.json``)."""
-        fpath = os.path.join(self.out_dir, self.run_name,
-                             'phase_timings.json')
-        with open(fpath, 'w', encoding='utf-8') as fobj:
-            json.dump(self.timer.records, fobj, indent=2, default=str)
+        """Structured phase log (``phase_timings.json``): the records added
+        since the last dump, and the dump's own ``save.phase_log``
+        (:meth:`PhaseTimer.dump`)."""
+        self.timer.dump(os.path.join(self.out_dir, self.run_name,
+                                     'phase_timings.json'))
+
+    def _save(self, kind: str, path: str, array: np.ndarray) -> None:
+        """``np.save`` of an artifact under the span ``save.<kind>``."""
+        with self.timer.span(f'save.{kind}'):
+            np.save(path, array)
 
     def _get_counts_fname(self, case_id, real_id, dirname):
         return os.path.join(dirname,

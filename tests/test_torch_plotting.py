@@ -298,7 +298,9 @@ def test_compute_presence_map_unchanged_by_the_move(figs):
     np.testing.assert_array_equal(
         np.load(os.path.join(port.mode_data_dir, 'summary_presence.npy')),
         want.astype(np.float32))
-    assert port.timer.records[-1]['phase'] == 'presence_map'
+    # the map's record, then the phase log's save after it
+    assert [r['phase'] for r in port.timer.records[-2:]] == [
+        'presence_map', 'save.phase_log']
 
 
 def test_plot_presence_map_writes_the_same_summary(figs):
