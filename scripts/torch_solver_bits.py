@@ -9,8 +9,10 @@ unpacked by ``git archive``) at OTHER:
 
 Two hard fields (``potential.fields.conductivity_hard``, seeds 1 and 2,
 460x460 and 500x600, track direction 0) are solved by the one-device
-refined solver (``potential.lap.solve_potential_refined``) and, where a
-checkout has it, by the row-sharded one over ``[cuda:0] * SHARDS``
+refined solver (``potential.lap.solve_potential_refined``), in a batch
+of BATCH fields of their grid (seeds from theirs on, through
+``solve_potential_refined_batch``) and, where a checkout has it, by the
+row-sharded one over ``[cuda:0] * SHARDS``
 (``parallel.solve_potential_refined_sharded``). Each checkout solves in
 a process of its own, in turns: this, other, other, this. The script
 prints the card's name and power limit, one JSON line a process (rrel,
@@ -34,6 +36,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = {'hard_460': ((460, 460), 1), 'hard_500x600': ((500, 600), 2)}
 SHARDS = 4
+BATCH = 4
 
 
 def child(root: str, inputs: str, out: str) -> None:
@@ -56,9 +59,13 @@ def child(root: str, inputs: str, out: str) -> None:
     for name in FIELDS:
         cond = torch.from_numpy(np.load(os.path.join(
             inputs, f'{name}.npy'))).cuda()
+        conds = torch.from_numpy(np.load(os.path.join(
+            inputs, f'{name}_batch.npy'))).cuda()
         bmask, bvals = boundary_masks(0., tuple(cond.shape))
         runs = [('one_device', lambda st: lap.solve_potential_refined(
-            cond, bmask, bvals, stats=st))]
+            cond, bmask, bvals, stats=st)),
+                ('batch', lambda st: lap.solve_potential_refined_batch(
+                    conds, bmask, bvals, stats=st))]
         if solve_potential_refined_sharded is not None:
             runs.append(('sharded', lambda st: solve_potential_refined_sharded(
                 cond, bmask, bvals, mesh=mesh, stats=st)))
@@ -73,7 +80,8 @@ def child(root: str, inputs: str, out: str) -> None:
             secs = time.perf_counter() - t0
             pots[f'{name}/{kind}'] = pot.cpu().numpy()
             meta[f'{name}/{kind}'] = {
-                'rrel': rrel, 'vcycles': stats['vcycles'], 'seconds': secs,
+                'rrel': np.asarray(rrel).tolist(),
+                'vcycles': stats['vcycles'], 'seconds': secs,
                 **({'moves': {k: v['moves'] for k, v in
                               stats['transfers'].items()}}
                    if 'transfers' in stats else {})}
@@ -107,6 +115,9 @@ def main() -> int:
         for name, (shape, seed) in FIELDS.items():
             np.save(os.path.join(tmp, f'{name}.npy'),
                     conductivity_hard(shape, seed=seed))
+            np.save(os.path.join(tmp, f'{name}_batch.npy'), np.stack(
+                [conductivity_hard(shape, seed=seed + i)
+                 for i in range(BATCH)]))
         res = {}
         for tag, root in (('this', REPO), ('other', other),
                           ('other_again', other), ('this_again', REPO)):

@@ -41,6 +41,12 @@ operations that differ go through :func:`_each`, :func:`_total`,
 :func:`island_sum` and :func:`_island_max`, which take the plain torch
 call on a tensor and reduce per case on a batch.
 
+A GCR iteration runs ~2,800 small kernels at 500x600, each launched
+from Python at ~12 us of host time against ~1.4 us of device time. On a
+CUDA tensor (one field or a batch) a solve captures the iteration once
+as a CUDA graph and replays it (:class:`_GcrGraph`); row blocks and CPU
+tensors run the same iteration function eagerly.
+
 What the TPU needed and the card does not, and is left out: the tiled
 label dictionary (XLA lowers ``segment_sum`` to a serial scatter on the
 TPU), the parity-mask ``reduce_window`` and selector-matmul transfers
@@ -56,7 +62,6 @@ east-column fac quirk (see ``solver.py``).
 
 from __future__ import annotations
 
-from collections import deque
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -555,29 +560,56 @@ def _cycle(levels: List[LapLevel], idx: int, u: torch.Tensor,
 
 _GCR_K = 3  # truncated-GCR history depth (Orthomin(k))
 _REFINE_PASSES = 30  # budget of float64 refinement passes per solve
+# a single CUDA tensor field (2-D or a batch) replays each GCR iteration
+# as a CUDA graph; tests set this False to run the eager loop on the card
+_GRAPHS = True
 
 
-def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
-               tol_abs: torch.Tensor, active=None
-               ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
-    """Solve A x = rhs (x clamped 0 at Dirichlet cells) by truncated
-    flexible GCR preconditioned with one deflated V-cycle per iteration.
-    Inner products are taken in the D^-1-weighted norm, so plateau rows
-    (D ~ 1e-8) are not invisible next to island rows (D ~ 1).
+class _Gcr(NamedTuple):
+    """The state a GCR iteration carries to the next. The history is
+    ``_GCR_K`` fixed slots of directions ``zs`` and their images ``qs``,
+    oldest first, as JAX's shifted buffer: an empty slot holds exact
+    zeros, whose ``beta`` is +-0 and leaves ``z`` and ``q`` as they are in
+    value. ``rn_prev`` comes before ``rn``: :class:`_GcrGraph` copies a
+    new state into the old in this order, and a single field's new
+    ``rn_prev`` is the old ``rn``."""
+    x: torch.Tensor
+    zs: tuple
+    qs: tuple
+    rn_prev: torch.Tensor
+    rn: torch.Tensor
+    active: Optional[torch.Tensor]  # a batch's (C, 1, 1) bool, else None
 
-    The history is a ring of the last ``_GCR_K`` directions, oldest
-    first, as JAX's shifted buffer (whose empty slots contribute exact
-    zeros). The exit test reads one device value per iteration, the
-    only host sync of an iteration: each iteration (the span
-    ``potential.iteration``) ends with the next one's test.
+    def fields(self) -> list:
+        """The state's fields in copying order (``active`` where set)."""
+        out = [self.x, *self.zs, *self.qs, self.rn_prev, self.rn]
+        return out if self.active is None else out + [self.active]
 
-    On a batch the test is per case, as under JAX's ``vmap`` of the
-    loop: the loop runs while any case goes on, and a case that has
-    stopped keeps its iterate and its norms (:func:`_keep`). A stopped
-    case never goes on again, so what its history becomes does not
-    matter. ``active`` ((C, 1, 1) bool) marks the cases that start at
-    all. Returns (x, scaled residual norm, iterations = V-cycles, per
-    case as an int array)."""
+
+def _snorm(top: LapLevel, r):
+    """The norm of the diagonally scaled residual ``D^-1 r``."""
+    return _norm(r * top.dinv)
+
+
+def _gcr_start(levels: List[LapLevel], rhs, active=None) -> _Gcr:
+    """The state before the first iteration of a GCR solve of ``rhs``:
+    x and the history zero, ``rn = rn_prev = snorm(rhs)``; every field
+    its own tensor."""
+    zero = lambda: _each(torch.zeros_like, rhs)  # noqa: E731
+    rn = _snorm(levels[0], rhs)
+    return _Gcr(x=zero(), zs=tuple(zero() for _ in range(_GCR_K)),
+                qs=tuple(zero() for _ in range(_GCR_K)), rn_prev=rn.clone(),
+                rn=rn, active=active)
+
+
+def _gcr_iteration(levels: List[LapLevel], rhs, s: _Gcr, go) -> _Gcr:
+    """One GCR iteration of A x = rhs from the state ``s``: the residual,
+    one deflated V-cycle, q = A z, the orthogonalization against the
+    history, the update of x and the next scaled residual norm. ``go``,
+    a batch's (C, 1, 1) bool, marks the cases that take the iteration:
+    the others keep x and their norms (:func:`_keep`); a case that has
+    stopped never goes on again, so what its history becomes does not
+    matter. Reads nothing back from the device."""
     top = levels[0]
     notb = top.notb
     dinv2 = top.dinv * top.dinv
@@ -585,52 +617,139 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
     def sdot(a, b):
         return _total((a * dinv2) * b)
 
-    def snorm(r):
-        return _norm(r * top.dinv)
+    r = (rhs - _apply_lap(top.planes, s.x)) * notb
+    z = vcycle(levels, r, _each(torch.zeros_like, s.x)) * notb
+    q = _apply_lap(top.planes, z) * notb
+    for zi, qi in zip(s.zs, s.qs):
+        beta = sdot(q, qi)
+        z = z - beta * zi
+        q = q - beta * qi
+    nrm2 = sdot(q, q)
+    inv = torch.where(nrm2 > 0, torch.rsqrt(nrm2 + 1e-38), 0.)
+    z, q = z * inv, q * inv
+    alpha = sdot(r, q)
+    x = _keep(go, s.x + alpha * z, s.x)
+    rn = _snorm(top, (rhs - _apply_lap(top.planes, x)) * notb)
+    return _Gcr(x=x, zs=s.zs[1:] + (z,), qs=s.qs[1:] + (q,),
+                rn_prev=_keep(go, s.rn, s.rn_prev), rn=_keep(go, rn, s.rn),
+                active=go if _is_batch(x) else s.active)
 
-    x = _each(torch.zeros_like, rhs)
-    hist = deque(maxlen=_GCR_K)
-    rn = rn_prev = snorm(rhs)
-    its = np.zeros(rn.numel(), np.int64)
+
+def _write_state(bufs: _Gcr, new: _Gcr) -> None:
+    """Copy the state ``new`` into the buffers ``bufs`` (the state it
+    was computed from), in the order of :meth:`_Gcr.fields`: the history
+    shifts oldest first, and a single field's new ``rn_prev``, the old
+    ``rn``, is copied before ``rn`` is overwritten."""
+    for buf, val in zip(bufs.fields(), new.fields()):
+        buf.copy_(val)
+
+
+def _takes_graph(field) -> bool:
+    """Whether a solve of ``field``'s kind replays its GCR iterations as a
+    CUDA graph: a tensor on a CUDA device, one field or a batch. CPU
+    tensors and row blocks run the same iteration eagerly."""
+    return _GRAPHS and torch.is_tensor(field) and field.is_cuda
+
+
+class _GcrGraph:
+    """One GCR iteration (:func:`_gcr_iteration`) over a solve's
+    ``levels``, captured once as a CUDA graph on buffers allocated once:
+    each replay runs the iteration's kernels (~2,800 at 500x600) from the
+    buffers and copies the new state into them, with no launch from
+    Python. ``like`` is a field of the solve's shape and device. Nothing
+    but the solve keeps it: the graph's memory pool goes with it."""
+
+    def __init__(self, levels: List[LapLevel], like: torch.Tensor):
+        self.levels = levels  # the graph reads their memory
+        self.rhs = torch.zeros_like(like, dtype=torch.float32)
+        batch = _is_batch(like)
+        self.go = torch.ones(like.shape[0], 1, 1, dtype=torch.bool,
+                             device=like.device) if batch else None
+        self.state = _gcr_start(levels, self.rhs,
+                                self.go.clone() if batch else None)
+        self.graph = torch.cuda.CUDAGraph()
+        with span('potential.capture'):
+            # a stream of the field's device, which need not be the
+            # current one; 'thread_local': CUDA calls of other threads (a
+            # profiler's) do not break the capture
+            with torch.cuda.graph(self.graph,
+                                  stream=torch.cuda.Stream(like.device),
+                                  capture_error_mode='thread_local'):
+                _write_state(self.state, _gcr_iteration(
+                    levels, self.rhs, self.state, self.go))
+
+    def start(self, rhs: torch.Tensor, active) -> _Gcr:
+        """The state of a GCR solve of ``rhs`` from ``active``, written
+        into the buffers (:func:`_gcr_start`)."""
+        s = self.state
+        self.rhs.copy_(rhs)
+        for buf in (s.x, *s.zs, *s.qs):
+            buf.zero_()
+        s.rn.copy_(_snorm(self.levels[0], self.rhs))
+        s.rn_prev.copy_(s.rn)
+        if active is not None:
+            s.active.copy_(active)
+        return s
+
+    def step(self, s: _Gcr, go) -> _Gcr:
+        """:func:`_gcr_iteration` of the buffers' state, in place."""
+        if self.go is not None:
+            self.go.copy_(go)
+        self.graph.replay()
+        return s
+
+
+def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
+               tol_abs: torch.Tensor, active=None, graph=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
+    """Solve A x = rhs (x clamped 0 at Dirichlet cells) by truncated
+    flexible GCR preconditioned with one deflated V-cycle per iteration
+    (:func:`_gcr_iteration`). Inner products are taken in the
+    D^-1-weighted norm, so plateau rows (D ~ 1e-8) are not invisible next
+    to island rows (D ~ 1).
+
+    With ``graph`` (a :class:`_GcrGraph` of ``levels``) each iteration is
+    a replay of it, else the iteration runs eagerly. The exit test reads
+    one device value per iteration, the only host sync of an iteration:
+    each iteration (the span ``potential.iteration``) ends with the next
+    one's test.
+
+    On a batch the test is per case, as under JAX's ``vmap`` of the
+    loop: the loop runs while any case goes on, and a case that has
+    stopped keeps its iterate and its norms. ``active`` ((C, 1, 1) bool)
+    marks the cases that start at all. Returns (x, scaled residual norm,
+    iterations = V-cycles, per case as an int array); with ``graph``, x
+    and the norm are its buffers, overwritten by its next solve."""
+    if graph is None:
+        s = _gcr_start(levels, rhs, active)
+        step = lambda s, go: _gcr_iteration(levels, rhs, s, go)  # noqa: E731
+    else:
+        s = graph.start(rhs, active)
+        step = graph.step
+    its = np.zeros(s.rn.numel(), np.int64)
     it = 0
 
     def exit_test():
         """(go, go on the host): the cases that run iteration ``it``;
         every case still going has run all ``it`` before it."""
-        go = rn > tol_abs
+        go = s.rn > tol_abs
         if it >= 8:
             # exit at the float32 floor: past the slow start (~0.97 per
             # iteration on hard fields), an iteration must gain 0.5%
-            go = go & (rn < 0.995 * rn_prev)
-        if active is not None:
-            go = go & active
+            go = go & (s.rn < 0.995 * s.rn_prev)
+        if s.active is not None:
+            go = go & s.active
         return go, _host(go)
 
-    stop = np.zeros(rn.numel(), bool)
+    stop = np.zeros(s.rn.numel(), bool)
     go, going = exit_test() if maxiter > 0 else (None, stop)
     while going.any():
         with span('potential.iteration'):
             its += going
-            r = (rhs - _apply_lap(top.planes, x)) * notb
-            z = vcycle(levels, r, _each(torch.zeros_like, x)) * notb
-            q = _apply_lap(top.planes, z) * notb
-            for zi, qi in hist:
-                beta = sdot(q, qi)
-                z = z - beta * zi
-                q = q - beta * qi
-            nrm2 = sdot(q, q)
-            inv = torch.where(nrm2 > 0, torch.rsqrt(nrm2 + 1e-38), 0.)
-            z, q = z * inv, q * inv
-            alpha = sdot(r, q)
-            x = _keep(go, x + alpha * z, x)
-            hist.append((z, q))
-            rn_new = snorm((rhs - _apply_lap(top.planes, x)) * notb)
-            rn_prev, rn = _keep(go, rn, rn_prev), _keep(go, rn_new, rn)
-            if _is_batch(x):
-                active = go
+            s = step(s, go)
             it += 1
             go, going = exit_test() if it < maxiter else (go, stop)
-    return x, rn, its
+    return s.x, s.rn, its
 
 
 # ---- refined solve -------------------------------------------------------------
@@ -665,9 +784,13 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
     """The float64 refinement of the potential from the TRUE planes
     ``planes_t``, each pass a GCR solve over ``levels``, from ``u0`` (by
     default the cold start); the fields are tensors on one device, row
-    blocks, or a batch (``bvals`` then (C, nrow, ncol)). Returns
-    (potential f32, rrel, refinement passes, V-cycles): numbers, or for a
-    batch arrays of one per case."""
+    blocks, or a batch (``bvals`` then (C, nrow, ncol)). On a CUDA
+    tensor the first pass that runs captures one GCR iteration as a CUDA
+    graph (the span ``potential.capture``), which every iteration of
+    every pass replays (the counter ``graph_replays``); it is dropped,
+    with its memory, when this returns. Returns (potential f32, rrel,
+    refinement passes, V-cycles): numbers, or for a batch arrays of one
+    per case."""
     num = k + 1
     top = levels[0]
     planes_t64 = planes_t.to(torch.float64)
@@ -709,6 +832,7 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
 
     u = u0.to(torch.float64)
     n = scale.shape[0]
+    graph = None  # captured when the first pass starts (_GcrGraph)
     lev = np.full(n, np.inf)
     rn, best = scale.copy(), scale.copy()
     stall, passes, cycles = (np.zeros(n, np.int64) for _ in range(3))
@@ -724,6 +848,8 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
             (rn > target) | (lev > lev_target)) & (stall < 3)
         if not going.any():
             break
+        if graph is None and _takes_graph(u0_cold):
+            graph = _GcrGraph(levels, u0_cold)
         with span('potential.pass'):
             active = torch.as_tensor(going, device=u.device).view(
                 -1, 1, 1) if batch else None
@@ -731,11 +857,13 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
             tol_abs = torch.clamp(0.02 * scaled_norm(r), min=floor)
             delta, _, its = _gcr_solve(levels, r.to(torch.float32),
                                        maxcycles, tol_abs.to(torch.float32),
-                                       active)
+                                       active, graph)
             cycles += its
             # the GCR's loop turns: a batch's case that goes on has run
             # every turn
             count('iterations', int(its.max()), on='potential.solve')
+            if graph is not None:
+                count('graph_replays', int(its.max()), on='potential.solve')
             u_new = u + (delta * top.notb).to(torch.float64)
             if k:
                 u_new = u_new + _spread(island_coeff(resid(u_new)),

@@ -672,3 +672,65 @@ def test_sweep_on_card_fields_device_bitwise(cuda, tmp_path):
             for c in cases for kind in ('counts', 'potential')])
     for a, b in zip(*arts):
         np.testing.assert_array_equal(a, b)
+
+
+def _timed_solve(cond, batch):
+    """A refined solve of ``cond`` (a field, or a batch of fields of one
+    grid) under a timer: (potential, rrel as an array, stats, records)."""
+    from ssrs_tpu_torch.core.timing import PhaseTimer
+    from ssrs_tpu_torch.potential import (boundary_masks,
+                                          solve_potential_refined,
+                                          solve_potential_refined_batch)
+    bmask, bvals = boundary_masks(0., tuple(cond.shape[-2:]))
+    solve = solve_potential_refined_batch if batch else \
+        solve_potential_refined
+    timer, stats = PhaseTimer(), {}
+    with timer.span('job'):
+        pot, rrel = solve(cond, bmask, bvals, stats=stats)
+    return pot, np.asarray(rrel), stats, timer.records
+
+
+@pytest.mark.parametrize('cases', [1, 8])
+def test_graphed_solve_equals_eager_on_card(cuda, cases, monkeypatch):
+    """The refined solve on the card replays its GCR iterations as a CUDA
+    graph: one ``potential.capture`` under ``potential.solve``, a replay
+    an iteration, and the bits of the eager loop (forced through
+    ``lap._GRAPHS``), single and batched, at the README's 500x600."""
+    from ssrs_tpu_torch.potential import lap
+    fields = [conductivity_hard((500, 600), 2 + i) for i in range(cases)]
+    cond = torch.from_numpy(np.stack(fields) if cases > 1 else fields[0]
+                            ).to(cuda)
+    pot, rrel, stats, recs = _timed_solve(cond, cases > 1)
+    solve, = [r for r in recs if r['phase'] == 'potential.solve']
+    capture, = [r for r in recs if r['phase'] == 'potential.capture']
+    assert capture['parent'] == solve['span']
+    assert solve['graph_replays'] == solve['iterations'] > 0
+    assert solve['iterations'] >= max(np.atleast_1d(stats['vcycles']))
+    monkeypatch.setattr(lap, '_GRAPHS', False)
+    eager, eager_rrel, eager_stats, eager_recs = _timed_solve(cond,
+                                                              cases > 1)
+    assert 'potential.capture' not in [r['phase'] for r in eager_recs]
+    assert torch.equal(pot.view(torch.int32), eager.view(torch.int32))
+    np.testing.assert_array_equal(rrel, eager_rrel)
+    assert stats == eager_stats and float(rrel.max()) < 1e-5
+
+
+def test_graphed_solves_free_their_memory_on_card(cuda):
+    """Two graphed solves in one process leave the allocated memory where
+    it was: the graph, its pool and its buffers go with each solve, with
+    the cyclic collector off (no reference cycle keeps them)."""
+    import gc
+    cond = torch.from_numpy(speckle(np.random.default_rng(3), (200, 240),
+                                    0.55)).to(cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    gc.disable()
+    try:
+        for _ in range(2):
+            pot, _, _, recs = _timed_solve(cond, False)
+            assert 'potential.capture' in [r['phase'] for r in recs]
+            del pot
+            torch.cuda.synchronize()
+            assert torch.cuda.memory_allocated(cuda) == base
+    finally:
+        gc.enable()
