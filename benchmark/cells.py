@@ -6,7 +6,15 @@ files and entries; nothing here lists them:
 
 - ``BENCHMARK.json``'s ``configs[i].file``: the configuration's JSON, the
   ``Config`` fields of the program plus the harness's keys
-  (:data:`HARNESS_KEYS`);
+  (:data:`HARNESS_KEYS`). A snapshot or seasonal configuration holds
+  ``wtk_standin``, ``{"years": [...], "seed": n, "spacing_km": x}``: the
+  WTK stand-in (``wtk.py``) that set-up writes and every job reads as its
+  ``LOCAL`` source (the harness sets ``wtk_source``,
+  ``wtk_local_template`` and ``wtk_local_years``); it states the mode's
+  fields (``snapshot_datetime``, or ``seasonal_start``, ``seasonal_end``,
+  ``seasonal_timeofday`` and ``seasonal_count``) and
+  ``wtk_orographic_height``, ``wtk_thermal_height`` and
+  ``wtk_interp_type`` (``linear``) itself;
 - ``benchmark/traffic/<traffic>.json``: the mix's parameters, read by the
   one generator in ``traffic.py``;
 - ``benchmark/limits/<cell>.json``: the limits of the cell's comparison
@@ -22,7 +30,8 @@ import os
 
 BENCH_DIR = 'benchmark'
 # keys of a configuration file that are not the program's Config fields
-HARNESS_KEYS = ('source', 'assumed', 'reduced', 'why', 'wind_directions')
+HARNESS_KEYS = ('source', 'assumed', 'reduced', 'why', 'wind_directions',
+                'wtk_standin')
 
 
 def load_spec(root: str) -> dict:

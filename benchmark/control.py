@@ -16,6 +16,14 @@ the fields are the reference's in float32, the potentials its float64
 direct solutions, the summary map float64, so that only the counts can
 tell it from the program.
 
+A snapshot or seasonal configuration takes the same path by case
+(:class:`WtkControl`): the reference's interpolated winds rounded to
+bfloat16 and the orograph in bfloat16, the datetimes and starts of the
+window's job seeds, each (job, case) pair the judge draws walked on its
+own; it is judged by ``judge.wtk_numbers``, its fields and potentials on
+the drawn pairs alone (a float64 direct solve a case costs too much for
+every case of a job).
+
     python3 benchmark/control.py --workload <name> --seeds 1 2 3 \
         [--table-only]
 
@@ -94,6 +102,108 @@ def control_outputs(cfg: dict, dem, dem_bounds, draws, tracks: int,
             'counts': dict(zip(cases, counts)), 'summary': summary}
 
 
+class _Job:
+    """A pseudo-job of the control: a window job's label, seed, start
+    draw and the reference's case ids of that seed."""
+
+    def __init__(self, cfg: dict, seed: int, label):
+        from . import wtkref
+        from .traffic import job_seed
+        self.label = label
+        self.seed = job_seed(seed, label)
+        self.draw = (self.seed, 0)
+        self.datetimes = wtkref.cases(cfg, self.seed)
+        self.cases = list(self.datetimes)
+
+
+class WtkControl:
+    """The control's outputs of a snapshot or seasonal configuration, read
+    as ``Traffic``'s are (``case_fields``, ``case_counts``, ``summary``)
+    and made as they are first read. ``potentials``, {case: float64
+    solution}, saves the direct solves between seeds (a case's solution
+    does not depend on the seed)."""
+
+    def __init__(self, cfg: dict, dem, dem_bounds, tracks: int, seed: int,
+                 device, potentials=None, table_only: bool = False):
+        from . import wtkref
+        self.cfg, self.tracks, self.device = cfg, tracks, device
+        self.low = torch.float64 if table_only else BF16
+        self.table_only = table_only
+        self.fields = wtkref.Fields(cfg, dem, dem_bounds, device,
+                                    dtype=self.low)
+        self.potentials = {} if potentials is None else potentials
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(int(seed) % (1 << 63))
+        self._fields, self._counts = {}, {}
+
+    def case_fields(self, job, case: str, device):
+        from . import reference as ref
+        key = (job.label, case)
+        if key not in self._fields:
+            thr = self.fields.thresholded(job.datetimes[case]).to(
+                torch.float32)
+            if case not in self.potentials:
+                self.potentials[case] = ref.direct_potential(
+                    thr.double().cpu().numpy(),
+                    float(self.cfg['track_direction']))
+            pot = torch.as_tensor(self.potentials[case], device=self.device)
+            if not self.table_only:
+                pot = pot.to(BF16).to(torch.float32)
+            self._fields[key] = (thr, pot)
+        return self._fields[key]
+
+    def case_counts(self, job, case: str, device):
+        from . import judge, reference as ref
+        key = (job.label, case)
+        if key not in self._counts:
+            import numpy as np
+            cfg = self.cfg
+            dirn = float(cfg['track_direction'])
+            thr, pot = self.case_fields(job, case, device)
+            rows, cols = judge.starts(cfg, [job.draw], self.tracks)[0]
+            starts_rc = torch.as_tensor(np.stack([rows, cols], 1),
+                                        device=self.device)
+            table = fp8_table(ref.move_table(thr, pot, dirn))[None]
+            shape = table.shape[1:3]
+            self._counts[key] = ref.walk_counts(
+                table, starts_rc, dirn, int(cfg['track_dirn_restrict']),
+                float(cfg['track_stochastic_nu']), int(min(shape) / 10),
+                int(cfg['track_max_steps']), self.gen)[0]
+        return self._counts[key]
+
+    def summary(self, job, device):
+        from . import reference as ref
+        counts = torch.stack([self.case_counts(job, c, device)
+                              for c in sorted(job.cases)])
+        krad = ref.kernel_radius(1000., float(self.cfg['resolution']),
+                                 counts.shape[1:])
+        return ref.summary_map(counts.to(self.low), krad,
+                               dtype=self.low).to(torch.float64)
+
+
+def wtk_readings(cfg: dict, dem, bnds, tracks: int, seeds, device,
+                 table_only: bool = False, jobs=None) -> list:
+    """The control's numbers of a snapshot or seasonal configuration on
+    each seed, over ``jobs`` window jobs (by default one)."""
+    from . import judge, wtkref
+    ref_fields = wtkref.Fields(cfg, dem, bnds, device)
+    solved = {}
+    out = []
+    for seed in seeds:
+        t0 = time.perf_counter()
+        ctl = WtkControl(cfg, dem, bnds, tracks, seed, device, solved,
+                         table_only)
+        sample = judge.PairSample(seed)
+        for k in range(jobs or 1):
+            sample.add(_Job(cfg, seed, k))
+        values = judge.wtk_numbers(cfg, ref_fields, ctl, sample.kept,
+                                   sample.kept, sample.summary_job, tracks,
+                                   device)
+        out.append({'seed': seed, 'numbers': values,
+                    'seconds': time.perf_counter() - t0})
+    return out
+
+
 def window_draws(seed: int, count: int) -> list:
     """The start draws of ``count`` window jobs of a run with ``seed``."""
     from .traffic import job_seed
@@ -103,16 +213,20 @@ def window_draws(seed: int, count: int) -> list:
 def readings(root: str, cell_name: str, seeds, device,
              table_only: bool = False, jobs=None) -> list:
     """The control's numbers of ``cell_name`` on each seed, over the
-    starts of ``jobs`` window jobs (by default :data:`judge.COUNT_JOBS`;
-    give fewer where a run's window holds fewer)."""
-    from . import cells, judge, terrain
+    starts of ``jobs`` window jobs (by default :data:`judge.COUNT_JOBS`,
+    or one for a snapshot or seasonal configuration; give fewer where a
+    run's window holds fewer)."""
+    from . import cells, judge, terrain, wtkref
     spec = cells.load_spec(root)
     cell = cells.find_cell(spec, cell_name)
     cfg = cells.load_config(root, spec, cell['config'])
     mix = cells.load_traffic(root, cell['traffic'])
     dem, bnds = terrain.make_dem(cfg)
-    ref_thr = judge.reference_fields(cfg, dem, bnds, device)
     tracks = int(mix['tracks_per_case'])
+    if wtkref.is_wtk(cfg):
+        return wtk_readings(cfg, dem, bnds, tracks, seeds, device,
+                            table_only, jobs)
+    ref_thr = judge.reference_fields(cfg, dem, bnds, device)
     solved = {}
     out = []
     for seed in seeds:

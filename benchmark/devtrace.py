@@ -1,16 +1,14 @@
 """The device trace of one job: torch.profiler over the job, read into
 device busy time, kernel times by name, and idle gaps named by the
-``Simulator`` phase the host was in.
+``Simulator`` span the host was in.
 
-The phases are marked from here: for the profiled job the program's
-``PhaseTimer.phase`` is wrapped so that each phase is also a profiler
-range (``phase:<name>``), and the whole job is the range ``job``. The
-potential's preparation is no phase of its own: its idle time falls under
-the phase around it, or under ``job``."""
+The program opens the profiler range ``phase:<name>`` of each of its
+spans itself while a profiler is on; the whole job is the range ``job``,
+opened here. Idle time under no span falls under ``job``."""
 
 from __future__ import annotations
 
-import contextlib
+import heapq
 import time
 
 import torch
@@ -23,26 +21,6 @@ LAUNCHES = ('cudaLaunchKernel', 'cuLaunchKernel', 'cudaLaunchKernelExC',
             'cuLaunchKernelEx')
 
 
-@contextlib.contextmanager
-def phase_ranges():
-    """Each ``PhaseTimer.phase`` of the program is also a profiler range
-    while this is open."""
-    from ssrs_tpu_torch.core import timing
-    orig_phase = timing.PhaseTimer.phase
-
-    @contextlib.contextmanager
-    def phase(self, name, **meta):
-        with torch.profiler.record_function(f'phase:{name}'):
-            with orig_phase(self, name, **meta):
-                yield
-
-    timing.PhaseTimer.phase = phase
-    try:
-        yield
-    finally:
-        timing.PhaseTimer.phase = orig_phase
-
-
 def _union(intervals):
     """Merged, sorted (start, end) intervals."""
     merged = []
@@ -52,6 +30,23 @@ def _union(intervals):
         else:
             merged.append([s, e])
     return merged
+
+
+def innermost(phases, points) -> list:
+    """The name of the shortest of ``phases`` (sorted ``(start, end,
+    name)``, closed intervals) that holds each of ``points`` (ascending),
+    the first in order among equally long ones, or ``'job'`` where none
+    does: one sweep with a heap of the ranges begun, by length."""
+    heap, names, k = [], [], 0
+    for x in points:
+        while k < len(phases) and phases[k][0] <= x:
+            s, e, name = phases[k]
+            heapq.heappush(heap, (e - s, k, e, name))
+            k += 1
+        while heap and heap[0][2] < x:
+            heapq.heappop(heap)
+        names.append(heap[0][3] if heap else 'job')
+    return names
 
 
 def profile(fn):
@@ -66,7 +61,7 @@ def profile(fn):
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    with phase_ranges(), torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         with torch.profiler.record_function('job'):
             result = fn()
         if torch.cuda.is_available():
@@ -96,15 +91,11 @@ def profile(fn):
     busy = [(max(s, window[0]), min(e, window[1]))
             for s, e in _union(device) if e > window[0] and s < window[1]]
     edges = [window[0]] + [x for iv in busy for x in iv] + [window[1]]
+    gaps = [(s, e) for s, e in zip(edges[::2], edges[1::2]) if e > s]
     idle = {}  # idle seconds by the innermost range the host was in
-    phases.sort()
-    for s, e in zip(edges[::2], edges[1::2]):
-        if e > s:
-            mid = (s + e) / 2
-            inside = [p for p in phases if p[0] <= mid <= p[1]]
-            name = min(inside, key=lambda p: p[1] - p[0])[2] if inside \
-                else 'job'
-            idle[name] = idle.get(name, 0.) + (e - s) * 1e-6
+    for (s, e), name in zip(gaps, innermost(
+            sorted(phases), [(s + e) / 2 for s, e in gaps])):
+        idle[name] = idle.get(name, 0.) + (e - s) * 1e-6
     gaps = sorted(([k, v] for k, v in idle.items()), key=lambda g: -g[1])
     ops = sorted(([k[:NAME_CHARS], v] for k, v in kernels.items()),
                  key=lambda g: -g[1])

@@ -12,7 +12,7 @@ import types
 
 import torch
 
-from . import cells, judge
+from . import cells, judge, wtkref
 from .traffic import Traffic
 
 # top-level module names a run must not have loaded: JAX, its libraries
@@ -73,7 +73,8 @@ def run_cell(root: str, cell_name: str, seed: int, seconds: float,
         peak = _peak(device, reset=True)
 
         jobs, steps = [], {}
-        sample = judge.Sample(seed)
+        wtk_run = wtkref.is_wtk(cfg)
+        sample = judge.PairSample(seed) if wtk_run else judge.Sample(seed)
         elapsed = 0.
         while elapsed < seconds:
             j = gen.job(len(jobs))
@@ -82,7 +83,10 @@ def run_cell(root: str, cell_name: str, seed: int, seconds: float,
             if not j.failed:
                 steps[j.label] = gen.useful_steps(j)
                 out = sample.add(j)
-                if out is not None:
+                if wtk_run:
+                    for job, cases, summary in out:
+                        gen.drop_outputs(job, cases, summary)
+                elif out is not None:
                     gen.drop_outputs(out)
         for j in jobs:
             phases = {}
@@ -118,10 +122,11 @@ def run_cell(root: str, cell_name: str, seed: int, seconds: float,
                 values[m['name']] = {'value': v, 'unit': m['unit']}
 
         t_check = time.perf_counter()
-        correct, checks = check(gen, cfg, limits, done, sample.kept,
-                                device)
-        print(f'check: {time.perf_counter() - t_check:.1f} s, the '
-              f'expectation to step {judge.ref.expected_counts.last_step}',
+        _peak(device, reset=True)
+        correct, checks = check(gen, cfg, limits, done, sample, device)
+        print(f'check: {time.perf_counter() - t_check:.1f} s, peak '
+              f'{_peak(device) / 2 ** 30:.3f} GiB, the expectation to step '
+              f'{getattr(judge.ref.expected_counts, "last_step", None)}',
               file=sys.stderr)
         correct = correct and not failed
         result = {'correct': correct, 'attempted': len(jobs),
@@ -141,12 +146,12 @@ def run_cell(root: str, cell_name: str, seed: int, seconds: float,
         shutil.rmtree(workdir, ignore_errors=True)
 
 
-def check(gen: Traffic, cfg: dict, limits: dict, jobs: list, sampled: list,
+def check(gen: Traffic, cfg: dict, limits: dict, jobs: list, sample,
           device):
     """(correct, checks) of the window's jobs, once the program's state
     is freed: the fields and potentials of every job (of the last, where
-    the jobs share them), the counts and summaries of the ``sampled``
-    jobs."""
+    the jobs share them), the counts and summaries of the jobs or (job,
+    case) pairs ``sample`` kept."""
     if not jobs:
         return False, {n: {'value': float('inf'), 'limit': limits[n]}
                        for n in judge.NAMES}
@@ -154,6 +159,15 @@ def check(gen: Traffic, cfg: dict, limits: dict, jobs: list, sampled: list,
     gc.collect()
     if torch.device(device).type == 'cuda':
         torch.cuda.empty_cache()
+    if wtkref.is_wtk(cfg):
+        fields = wtkref.Fields(cfg, gen.dem, gen.dem_bounds, device)
+        shared = gen.shared and cfg['sim_mode'].lower() == 'snapshot'
+        field_pairs = [(j, c) for j in (jobs[-1:] if shared else jobs)
+                       for c in j.cases]
+        values = judge.wtk_numbers(cfg, fields, gen, field_pairs,
+                                   sample.kept, sample.summary_job,
+                                   gen.tracks, device)
+        return judge.verdict(values, limits)
     ref_thr = judge.reference_fields(cfg, gen.dem, gen.dem_bounds, device)
     field_jobs = jobs[-1:] if gen.shared else jobs
     field_outputs = []
@@ -162,7 +176,7 @@ def check(gen: Traffic, cfg: dict, limits: dict, jobs: list, sampled: list,
         field_outputs.append({'thresholded': o['thresholded'],
                               'potential': o['potential']})
     count_jobs = [([j.draw], gen.outputs(j, device))
-                  for j in sorted(sampled, key=lambda j: j.start)]
+                  for j in sorted(sample.kept, key=lambda j: j.start)]
     values = judge.numbers(cfg, ref_thr, field_outputs, count_jobs,
                            gen.tracks, device)
     return judge.verdict(values, limits)
