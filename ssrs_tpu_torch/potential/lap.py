@@ -567,12 +567,12 @@ _GRAPHS = True
 
 class _Gcr(NamedTuple):
     """The state a GCR iteration carries to the next. The history is
-    ``_GCR_K`` fixed slots of directions ``zs`` and their images ``qs``,
-    oldest first, as JAX's shifted buffer: an empty slot holds exact
-    zeros, whose ``beta`` is +-0 and leaves ``z`` and ``q`` as they are in
-    value. ``rn_prev`` comes before ``rn``: :class:`_GcrGraph` copies a
-    new state into the old in this order, and a single field's new
-    ``rn_prev`` is the old ``rn``."""
+    fixed slots (``_GCR_K`` by default) of directions ``zs`` and their
+    images ``qs``, oldest first, as JAX's shifted buffer: an empty slot
+    holds exact zeros, whose ``beta`` is +-0 and leaves ``z`` and ``q`` as
+    they are in value. ``rn_prev`` comes before ``rn``: :class:`_GcrGraph`
+    copies a new state into the old in this order, and a single field's
+    new ``rn_prev`` is the old ``rn``."""
     x: torch.Tensor
     zs: tuple
     qs: tuple
@@ -591,14 +591,15 @@ def _snorm(top: LapLevel, r):
     return _norm(r * top.dinv)
 
 
-def _gcr_start(levels: List[LapLevel], rhs, active=None) -> _Gcr:
-    """The state before the first iteration of a GCR solve of ``rhs``:
-    x and the history zero, ``rn = rn_prev = snorm(rhs)``; every field
-    its own tensor."""
+def _gcr_start(levels: List[LapLevel], rhs, active=None,
+               depth: int = _GCR_K) -> _Gcr:
+    """The state before the first iteration of a GCR solve of ``rhs``
+    that keeps ``depth`` directions: x and the history zero, ``rn =
+    rn_prev = snorm(rhs)``; every field its own tensor."""
     zero = lambda: _each(torch.zeros_like, rhs)  # noqa: E731
     rn = _snorm(levels[0], rhs)
-    return _Gcr(x=zero(), zs=tuple(zero() for _ in range(_GCR_K)),
-                qs=tuple(zero() for _ in range(_GCR_K)), rn_prev=rn.clone(),
+    return _Gcr(x=zero(), zs=tuple(zero() for _ in range(depth)),
+                qs=tuple(zero() for _ in range(depth)), rn_prev=rn.clone(),
                 rn=rn, active=active)
 
 
@@ -656,17 +657,19 @@ class _GcrGraph:
     ``levels``, captured once as a CUDA graph on buffers allocated once:
     each replay runs the iteration's kernels (~2,800 at 500x600) from the
     buffers and copies the new state into them, with no launch from
-    Python. ``like`` is a field of the solve's shape and device. Nothing
-    but the solve keeps it: the graph's memory pool goes with it."""
+    Python. ``like`` is a field of the solve's shape and device, ``depth``
+    the directions the GCR keeps. Nothing but the solve keeps it: the
+    graph's memory pool goes with it."""
 
-    def __init__(self, levels: List[LapLevel], like: torch.Tensor):
+    def __init__(self, levels: List[LapLevel], like: torch.Tensor,
+                 depth: int = _GCR_K):
         self.levels = levels  # the graph reads their memory
         self.rhs = torch.zeros_like(like, dtype=torch.float32)
         batch = _is_batch(like)
         self.go = torch.ones(like.shape[0], 1, 1, dtype=torch.bool,
                              device=like.device) if batch else None
         self.state = _gcr_start(levels, self.rhs,
-                                self.go.clone() if batch else None)
+                                self.go.clone() if batch else None, depth)
         self.graph = torch.cuda.CUDAGraph()
         with span('potential.capture'):
             # a stream of the field's device, which need not be the
@@ -700,19 +703,20 @@ class _GcrGraph:
 
 
 def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
-               tol_abs: torch.Tensor, active=None, graph=None
+               tol_abs: torch.Tensor, active=None, graph=None,
+               depth: int = _GCR_K
                ) -> Tuple[torch.Tensor, torch.Tensor, np.ndarray]:
     """Solve A x = rhs (x clamped 0 at Dirichlet cells) by truncated
-    flexible GCR preconditioned with one deflated V-cycle per iteration
-    (:func:`_gcr_iteration`). Inner products are taken in the
-    D^-1-weighted norm, so plateau rows (D ~ 1e-8) are not invisible next
-    to island rows (D ~ 1).
+    flexible GCR, ``depth`` directions kept, preconditioned with one
+    deflated V-cycle per iteration (:func:`_gcr_iteration`). Inner
+    products are taken in the D^-1-weighted norm, so plateau rows (D ~
+    1e-8) are not invisible next to island rows (D ~ 1).
 
-    With ``graph`` (a :class:`_GcrGraph` of ``levels``) each iteration is
-    a replay of it, else the iteration runs eagerly. The exit test reads
-    one device value per iteration, the only host sync of an iteration:
-    each iteration (the span ``potential.iteration``) ends with the next
-    one's test.
+    With ``graph`` (a :class:`_GcrGraph` of ``levels``, which holds its
+    own depth) each iteration is a replay of it, else the iteration runs
+    eagerly. The exit test reads one device value per iteration, the only
+    host sync of an iteration: each iteration (the span
+    ``potential.iteration``) ends with the next one's test.
 
     On a batch the test is per case, as under JAX's ``vmap`` of the
     loop: the loop runs while any case goes on, and a case that has
@@ -721,7 +725,7 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
     iterations = V-cycles, per case as an int array); with ``graph``, x
     and the norm are its buffers, overwritten by its next solve."""
     if graph is None:
-        s = _gcr_start(levels, rhs, active)
+        s = _gcr_start(levels, rhs, active, depth)
         step = lambda s, go: _gcr_iteration(levels, rhs, s, go)  # noqa: E731
     else:
         s = graph.start(rhs, active)
@@ -757,8 +761,9 @@ def _gcr_solve(levels: List[LapLevel], rhs: torch.Tensor, maxiter: int,
 
 def _solve_refined_core(cond: torch.Tensor, bmask: torch.Tensor,
                         bvals: torch.Tensor, labels: np.ndarray, k: int,
-                        tol: float, maxcycles: int,
-                        init=None) -> Tuple[torch.Tensor, float, int, int]:
+                        tol: float, maxcycles: int, init=None,
+                        depth: int = _GCR_K
+                        ) -> Tuple[torch.Tensor, float, int, int]:
     """Returns (potential f32, rrel, refinement passes, V-cycles)."""
     planes_t = weight_planes(cond)
     # the preconditioner hierarchy on the SYMMETRIZED operator; the
@@ -775,22 +780,22 @@ def _solve_refined_core(cond: torch.Tensor, bmask: torch.Tensor,
         u0 = torch.where(bmask, bvals,
                          torch.where(torch.isfinite(init), init, 500.))
     return _refine(planes_t, levels, bmask, bvals, labels, k, tol,
-                   maxcycles, u0)
+                   maxcycles, u0, depth)
 
 
 def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
             labels: np.ndarray, k: int, tol: float, maxcycles: int,
-            u0=None):
+            u0=None, depth: int = _GCR_K):
     """The float64 refinement of the potential from the TRUE planes
-    ``planes_t``, each pass a GCR solve over ``levels``, from ``u0`` (by
-    default the cold start); the fields are tensors on one device, row
-    blocks, or a batch (``bvals`` then (C, nrow, ncol)). On a CUDA
-    tensor the first pass that runs captures one GCR iteration as a CUDA
-    graph (the span ``potential.capture``), which every iteration of
-    every pass replays (the counter ``graph_replays``); it is dropped,
-    with its memory, when this returns. Returns (potential f32, rrel,
-    refinement passes, V-cycles): numbers, or for a batch arrays of one
-    per case."""
+    ``planes_t``, each pass a GCR solve over ``levels`` that keeps
+    ``depth`` directions, from ``u0`` (by default the cold start); the
+    fields are tensors on one device, row blocks, or a batch (``bvals``
+    then (C, nrow, ncol)). On a CUDA tensor the first pass that runs
+    captures one GCR iteration as a CUDA graph (the span
+    ``potential.capture``), which every iteration of every pass replays
+    (the counter ``graph_replays``); it is dropped, with its memory, when
+    this returns. Returns (potential f32, rrel, refinement passes,
+    V-cycles): numbers, or for a batch arrays of one per case."""
     num = k + 1
     top = levels[0]
     planes_t64 = planes_t.to(torch.float64)
@@ -849,7 +854,7 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
         if not going.any():
             break
         if graph is None and _takes_graph(u0_cold):
-            graph = _GcrGraph(levels, u0_cold)
+            graph = _GcrGraph(levels, u0_cold, depth)
         with span('potential.pass'):
             active = torch.as_tensor(going, device=u.device).view(
                 -1, 1, 1) if batch else None
@@ -857,7 +862,7 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
             tol_abs = torch.clamp(0.02 * scaled_norm(r), min=floor)
             delta, _, its = _gcr_solve(levels, r.to(torch.float32),
                                        maxcycles, tol_abs.to(torch.float32),
-                                       active, graph)
+                                       active, graph, depth=depth)
             cycles += its
             # the GCR's loop turns: a batch's case that goes on has run
             # every turn
@@ -891,7 +896,7 @@ def _refine(planes_t, levels: List[LapLevel], bmask, bvals,
 
 def solve_potential_refined(conductivity, bmask, bvals, tol: float = 1e-7,
                             maxcycles: int = 60, init=None, device=None,
-                            stats=None):
+                            stats=None, depth: int = _GCR_K):
     """Solve the reference directional-potential system on a device.
     Returns (potential float32 (nrow, ncol) tensor, relative residual
     float).
@@ -905,8 +910,9 @@ def solve_potential_refined(conductivity, bmask, bvals, tol: float = 1e-7,
     budget of one GCR solve (at most ``_REFINE_PASSES`` refinement passes
     run).
     ``init`` optionally warm-starts the refinement (non-finite values
-    are replaced). ``stats``, a dict, receives ``passes`` (refinement
-    passes) and ``vcycles``."""
+    are replaced); ``depth`` is the number of directions each GCR solve
+    keeps. ``stats``, a dict, receives ``passes`` (refinement passes) and
+    ``vcycles``."""
     with span('potential.solve'):
         cond = _on_device(conductivity, device, 'solve_potential_refined')
         bmask = torch.as_tensor(bmask, device=cond.device).to(torch.bool)
@@ -914,7 +920,7 @@ def solve_potential_refined(conductivity, bmask, bvals, tol: float = 1e-7,
         with span('potential.labels'):
             labels, k = island_labels(_fetch(cond > 0), _fetch(bmask))
         pot, rrel, passes, cycles = _solve_refined_core(
-            cond, bmask, bvals, labels, k, tol, maxcycles, init)
+            cond, bmask, bvals, labels, k, tol, maxcycles, init, depth)
     if stats is not None:
         stats.update(passes=passes, vcycles=cycles)
     return pot, rrel
@@ -922,7 +928,8 @@ def solve_potential_refined(conductivity, bmask, bvals, tol: float = 1e-7,
 
 def solve_potential_refined_batch(conductivities, bmask, bvals,
                                   tol: float = 1e-7, maxcycles: int = 60,
-                                  device=None, stats=None):
+                                  device=None, stats=None, init=None,
+                                  depth: int = _GCR_K):
     """The refined solve of C conductivity fields of one grid and one
     track direction, as one batch: every operation of a V-cycle, a GCR
     iteration and a refinement pass runs once for all C cases.
@@ -938,9 +945,10 @@ def solve_potential_refined_batch(conductivities, bmask, bvals,
     ``conductivities``: a (C, nrow, ncol) tensor, a sequence of such
     fields (tensors or numpy), solved on their device, or numpy on
     ``device``, which it then requires. ``bmask`` and ``bvals`` are
-    shared. Returns (potentials float32 (C, nrow, ncol) tensor, rrel
-    float64 (C,) numpy). ``stats``, a dict, receives per-case lists
-    ``passes`` and ``vcycles``."""
+    shared; ``init`` and ``depth`` are :func:`solve_potential_refined`'s,
+    ``init`` one field a case. Returns (potentials float32 (C, nrow,
+    ncol) tensor, rrel float64 (C,) numpy). ``stats``, a dict, receives
+    per-case lists ``passes`` and ``vcycles``."""
     with span('potential.solve'):
         if torch.is_tensor(conductivities):
             cond = conductivities.to(torch.float32)
@@ -957,7 +965,7 @@ def solve_potential_refined_batch(conductivities, bmask, bvals,
             labels, k = batch_island_labels(_fetch(cond > 0), _fetch(bmask))
         pots, rrel, passes, cycles = _solve_refined_core(
             cond, bmask, bvals.expand(n_cases, -1, -1), labels, k, tol,
-            maxcycles)
+            maxcycles, init, depth)
     if stats is not None:
         stats.update(passes=passes.tolist(), vcycles=cycles.tolist())
     return pots, rrel

@@ -46,7 +46,7 @@ def _one_torch_thread():
 
 
 def _deque_gcr_solve(levels, rhs, maxiter, tol_abs, active=None,
-                     graph=None):
+                     graph=None, depth=lap._GCR_K):
     """The GCR loop with its history in a ``deque``, as the solver ran
     before the fixed slots (same signature as ``lap._gcr_solve``)."""
     assert graph is None
@@ -61,7 +61,7 @@ def _deque_gcr_solve(levels, rhs, maxiter, tol_abs, active=None,
         return lap._norm(r * top.dinv)
 
     x = lap._each(torch.zeros_like, rhs)
-    hist = deque(maxlen=lap._GCR_K)
+    hist = deque(maxlen=depth)
     rn = rn_prev = snorm(rhs)
     its = np.zeros(rn.numel(), np.int64)
     it = 0

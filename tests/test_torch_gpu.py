@@ -556,6 +556,29 @@ def test_single_refined_solve_of_speckle_field_on_card(cuda):
     assert np.abs(pot.cpu().numpy() - want).max() < 1.0
 
 
+def test_simulator_resolves_the_stalled_speckle_solve_on_card(
+        cuda, tmp_path):
+    """The Simulator's solve policy on the card on that speckle field: the
+    stalled single solve is solved again (``resolves``), and what the
+    policy keeps, the re-solve at or under ``RESOLVE_TRIGGER`` or the host
+    direct solve, is within the JAX tests' bound (1.0) of the direct
+    solve."""
+    from ssrs_tpu_torch.simulator import RESOLVE_TRIGGER
+    from ssrs_tpu_torch.potential import solve_potential_direct
+    cond = _batch_fields()[2]
+    sim = ssrs_tpu_torch.Simulator(ssrs_tpu_torch.Config(
+        run_name='speckle', region_width_km=(16., 12.8), resolution=200.,
+        track_count=10, mesh_devices=1, out_dir=str(tmp_path)), device=cuda)
+    assert tuple(sim.gridsize) == cond.shape
+    handle = sim._begin_potential_solve(cond)
+    host, _ = sim._finish_potential_solve_pair(handle)
+    info = handle[-1]
+    assert info['rrel'] > RESOLVE_TRIGGER and info['resolves'] >= 1
+    assert info['fallbacks'] == 1 or \
+        info['resolve_rrel'] <= RESOLVE_TRIGGER
+    assert np.abs(host - solve_potential_direct(cond, 0.)).max() < 1.0
+
+
 @pytest.mark.parametrize('k', [0, 1, 3])
 @pytest.mark.parametrize('nu', [1.0, 0.0])
 def test_kernels_without_a_table_match_plain_on_card(cuda, k, nu):

@@ -310,7 +310,8 @@ def test_old_records_keep_names_fields_and_order(runs):
     assert [r['phase'] for r in old] == [
         'terrain', 'turbines', 'updrafts', 'thermals', 'potential',
         'tracks', 'simulate_tracks', 'presence_map']
-    counters = {'tracks': {'alive_wait_s'}, 'batched_tracks': {'alive_wait_s'}}
+    counters = {'tracks': {'alive_wait_s'}, 'batched_tracks': {'alive_wait_s'},
+                'potential': {'resolves', 'fallbacks', 'resolve_rrel'}}
     sweep_old = [r for r in sweep.timer.records if r['phase'] in OLD_FIELDS]
     for rec in old + sweep_old:
         want = {'phase', 'seconds'} | OLD_FIELDS[rec['phase']]
