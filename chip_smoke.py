@@ -2707,7 +2707,7 @@ def _wtk_phase_line(label, records):
         f'{one["turbines"]:.4f}, WTK reads of {len(frames)} timestamps '
         f'{one["wtk_download"]:.3f} (and {sum(frames):.3f} reading the '
         f'cached frames back), interpolation {sum(interp):.3f} '
-        f'({len(interp)} x 2 griddata, {min(interp):.3f}-{max(interp):.3f} '
+        f'({len(interp)} cases, {min(interp):.3f}-{max(interp):.3f} '
         f'each), updrafts {one["updrafts"]:.3f} in all, thermals '
         f'{one["thermals"]:.3f}')
     return {**one, 'wtk_frames': sum(frames), 'wtk_interp': sum(interp)}

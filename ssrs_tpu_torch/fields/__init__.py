@@ -1,5 +1,6 @@
 """Field computations on the run's device: terrain derivatives,
-orographic updrafts, thermal fields and atmospheric scalars."""
+orographic updrafts, thermal fields and atmospheric scalars; the WTK
+sites' interpolation to the grid (``interp.py``)."""
 
 from .atmosphere import (compute_potential_temperature,
                          compute_thermal_updraft, deardoff_velocity_function)

@@ -2,7 +2,8 @@
 
 The PyTorch counterpart of ``ssrs_tpu/simulator.py``: uniform, snapshot
 and seasonal mode (the last two from WindToolKit winds, interpolated to
-the grid on the host), the ``fluidflow`` run, with the directional
+the grid by a plan built once on the host and applied on the run's
+device, ``fields/interp.py``), the ``fluidflow`` run, with the directional
 potential from the refined solver on the run's device
 (``potential_solver='auto'``, the default, or ``'refined'``), from the
 host float64 direct solve (``'direct'``, ``'dense'``) or from the legacy
@@ -65,6 +66,7 @@ from .data import (Terrain, TurbinesUSWTB, get_raster_in_projected_crs,
 from .fields import (compute_orographic_updraft,
                      compute_slope_aspect_degrees, compute_thermals,
                      get_above_threshold_speed)
+from .fields.interp import InterpPlan, speed_and_direction
 from .parallel.mesh import make_mesh, simulate_presence_sharded_compacting
 from .plotting import PlottingMixin
 from .potential.boundary import boundary_masks
@@ -201,6 +203,9 @@ class Simulator(PlottingMixin, Config):
             'blheight': 'boundary_layer_height',
             'surfheatflux': 'surface_heat_flux',
         }
+
+        # the WTK sites' interpolation plan (_wtk_interp_plan)
+        self._wtk_plan = None
 
         # mode dispatch (ssrs/simulator.py:117-133)
         if self.sim_mode.lower() != 'uniform':
@@ -340,7 +345,8 @@ class Simulator(PlottingMixin, Config):
     def compute_orographic_updrafts_using_wtk(self) -> None:
         """Per-datetime WTK-interpolated updrafts
         (ssrs/simulator.py:200-215): each case's winds are read from the
-        WTK cache and interpolated to the grid on the host (scipy), the
+        WTK cache and interpolated to the grid (the plan of
+        :meth:`_wtk_interp_plan`, built at the first case), the
         updraft is computed on the run's device and saved as
         ``{case}_orograph.npy``. One ``wtk_frame`` and one ``wtk_interp``
         phase record a case."""
@@ -1121,51 +1127,57 @@ class Simulator(PlottingMixin, Config):
         return transform_coordinates(self.lonlat_crs, self.projected_crs,
                                      wtk_lons, wtk_lats)
 
-    def _interpolate_wtk_vardata(self, vdata: np.ndarray) -> np.ndarray:
-        """Unstructured -> grid interpolation on the host
-        (ssrs/simulator.py:765-776): the sites' projection and the grid's
-        mesh (the span ``wtk_interp.sites``), then each ``griddata`` call
-        (a span ``wtk_interp.griddata``, counted as ``griddata_calls`` on
-        the ``wtk_interp`` record)."""
-        from scipy.interpolate import griddata
+    def _wtk_interp_plan(self) -> InterpPlan:
+        """The interpolation plan of the WTK sites' projected coordinates
+        (the span ``wtk_interp.sites``, every call), the grid and
+        ``wtk_interp_type``: the one built before where all three are the
+        same, else a new one (the span ``wtk_interp.plan``). Counted on the
+        ``wtk_interp`` record: ``plan_builds``, ``plan_hits`` and
+        ``griddata_calls`` (the host SciPy calls: ``'cubic'`` alone makes
+        one a call)."""
         with self.timer.span('wtk_interp.sites'):
-            xgrid, ygrid = self.get_terrain_grid()
             wtk_xlocs, wtk_ylocs = self.get_wtk_locs()
             points = np.array([np.asarray(wtk_xlocs),
-                               np.asarray(wtk_ylocs)]).T
-            xmesh, ymesh = np.meshgrid(xgrid, ygrid)
+                               np.asarray(wtk_ylocs)], dtype=np.float64).T
+        xgrid, ygrid = self.get_terrain_grid()
+        method = self.wtk_interp_type
+        plan = self._wtk_plan
+        hit = plan is not None and plan.fits(points, xgrid, ygrid, method)
+        if not hit:
+            with self.timer.span('wtk_interp.plan', method=method):
+                plan = InterpPlan(points, xgrid, ygrid, method, self.device)
+            self._wtk_plan = plan
+        self.timer.count('plan_builds', int(not hit), on='wtk_interp')
+        self.timer.count('plan_hits', int(hit), on='wtk_interp')
+        self.timer.count('griddata_calls', int(method == 'cubic'),
+                         on='wtk_interp')
+        return plan
 
-        def grid(method):
-            with self.timer.span('wtk_interp.griddata', method=method):
-                self.timer.count('griddata_calls', on='wtk_interp')
-                return griddata(points, np.asarray(vdata), (xmesh, ymesh),
-                                method=method)
-        try:
-            interp = grid(self.wtk_interp_type)
-        except Exception:
-            # linear/cubic need a triangulable point cloud; tiny regions
-            # may contain too few WTK points for one
-            interp = None
-        nearest = grid('nearest')
-        if interp is None:
-            return nearest
-        # grid cells outside the WTK convex hull get nearest-neighbor
-        return np.where(np.isnan(interp), nearest, interp)
+    def _interpolate_wtk_vardata(self, vdata: np.ndarray) -> np.ndarray:
+        """Unstructured -> grid interpolation (ssrs/simulator.py:765-776),
+        ``griddata`` with the nearest site outside the sites' hull, through
+        the plan (:meth:`_wtk_interp_plan`) on the run's device (the span
+        ``wtk_interp.apply``); float64 on the host."""
+        plan = self._wtk_interp_plan()
+        with self.timer.span('wtk_interp.apply'):
+            return plan(vdata).cpu().numpy()
 
     def _get_interpolated_wind_conditions(
             self, wspeed, wdirn) -> Tuple[np.ndarray, np.ndarray]:
         """Vector-decompose, interpolate, recompose
-        (ssrs/simulator.py:778-792)."""
+        (ssrs/simulator.py:778-792): both components through one
+        application of the plan, recomposed in float64 on the run's
+        device (the span ``wtk_interp.apply``); float64 on the host."""
         wspeed = np.asarray(wspeed, float)
         wdirn = np.asarray(wdirn, float)
         easterly = wspeed * np.sin(np.radians(wdirn))
         northerly = wspeed * np.cos(np.radians(wdirn))
-        interp_e = self._interpolate_wtk_vardata(easterly)
-        interp_n = self._interpolate_wtk_vardata(northerly)
-        interp_speed = np.hypot(interp_e, interp_n)
-        interp_dirn = np.mod(np.arctan2(interp_e, interp_n) + 2 * np.pi,
-                             2 * np.pi)
-        return interp_speed, np.degrees(interp_dirn)
+        plan = self._wtk_interp_plan()
+        with self.timer.span('wtk_interp.apply'):
+            interp = plan(np.stack([easterly, northerly], axis=1))
+            winds = speed_and_direction(interp[..., 0], interp[..., 1])
+            speed, dirn = torch.stack(winds).cpu().numpy()
+        return speed, dirn
 
     # ---- seasonal sampling ----------------------------------------------
 

@@ -10,7 +10,10 @@ replayed (3DEP, for the slope and aspect layers).
 - ``_orograph.npy``: ``rtol=1e-5, atol=1e-4``, the tolerance of the
   uniform slice's fields (float32, transcendentals differ by ulps
   between XLA and torch).
-- the interpolated winds: 1e-12 (numpy and scipy on the host in both).
+- the interpolated winds: 1e-12 (the port's plan, ``fields/interp.py``,
+  against numpy and scipy on the host); the plan against scipy's
+  ``griddata`` on the snapshot's sites and grid, built once for several
+  cases and again where the sites, the method or the grid change.
 - counts: as ``tests/test_torch_simulator.py`` holds them, L1 < 0.08 of
   the smoothed maps when the port runs on the JAX package's cached
   potential; mass and support otherwise.
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import requests
 import torch
+from scipy.interpolate import griddata
 
 from http_replay import (FakeResponse, FakeWMSServer, ReplayTransport,
                          fixture_bytes)
@@ -40,6 +44,7 @@ from ssrs_tpu.agents.presence import smooth_presence
 from ssrs_tpu_torch.agents import fused_chunk
 from ssrs_tpu_torch.agents.fused_step import launch_count, \
     reset_launch_count
+from ssrs_tpu_torch.core.timing import PhaseTimer
 from ssrs_tpu_torch.data import Table, read_csv
 from ssrs_tpu_torch.utils import get_seasonal_datetimes_list
 
@@ -289,6 +294,118 @@ def test_interpolation_of_a_cloud_without_a_triangulation(snap,
                                rtol=0, atol=1e-12)
     assert np.isfinite(got).all() and got[0, 0] == 3.
     assert 3. < got[10, 25] < 9.
+
+
+def _griddata(sim, vals, method):
+    """The port's interpolation before its plan: ``griddata`` by
+    ``method`` with the nearest site where it leaves a cell NaN; and the
+    mask of the cells outside the sites' hull."""
+    mesh = tuple(np.meshgrid(*sim.get_terrain_grid()))
+    points = np.column_stack(sim.get_wtk_locs())
+    nearest = griddata(points, vals, mesh, method='nearest')
+    outside = np.isnan(griddata(points, vals, mesh, method='linear'))
+    interp = griddata(points, vals, mesh, method=method)
+    return np.where(np.isnan(interp), nearest, interp), outside
+
+
+def _winds(sim, speed, dirn):
+    """Wind speed and direction through :func:`_griddata`, recomposed in
+    numpy."""
+    east = _griddata(sim, speed * np.sin(np.radians(dirn)),
+                     sim.wtk_interp_type)[0]
+    north = _griddata(sim, speed * np.cos(np.radians(dirn)),
+                      sim.wtk_interp_type)[0]
+    return np.hypot(east, north), np.degrees(
+        np.mod(np.arctan2(east, north) + 2 * np.pi, 2 * np.pi))
+
+
+@pytest.mark.parametrize('sites', ['all', 'west'])
+@pytest.mark.parametrize('method', ['linear', 'nearest'])
+def test_wtk_plan_equals_griddata(snap, monkeypatch, method, sites):
+    """The snapshot's grid from all its sites, or from those west of its
+    middle (the east then outside their hull): within 1e-12 of
+    ``griddata``, the nearest site bit for bit outside the hull."""
+    own = snap[2]
+    locs = own.get_wtk_locs()
+    if sites == 'west':
+        xgrid = own.get_terrain_grid()[0]
+        keep = locs[0] < xgrid[len(xgrid) // 2]
+        locs = (locs[0][keep], locs[1][keep])
+    monkeypatch.setattr(own, 'get_wtk_locs', lambda: locs)
+    monkeypatch.setattr(own, 'wtk_interp_type', method)
+    vals = np.random.default_rng(10).uniform(-12., 12., len(locs[0]))
+    got = own._interpolate_wtk_vardata(vals)
+    want, outside = _griddata(own, vals, method)
+    assert got.shape == own.gridsize and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    assert outside.any() == (sites == 'west')
+    np.testing.assert_array_equal(got[outside], want[outside])
+
+
+def test_wtk_plan_serves_every_case(snap, monkeypatch):
+    """Three cases' winds in three ``wtk_interp`` phases: one plan, built
+    at the first and used by the others, no host ``griddata``; each case's
+    winds within 1e-12 of ``griddata``'s."""
+    own = snap[2]
+    monkeypatch.setattr(own, 'timer', PhaseTimer())
+    monkeypatch.setattr(own, '_wtk_plan', None)
+    rng = np.random.default_rng(11)
+    n = len(own.wtk.get_locations())
+    plans = []
+    for _ in range(3):
+        speed, dirn = rng.uniform(2, 15, n), rng.uniform(0, 360, n)
+        with own.timer.phase('wtk_interp'):
+            got = own._get_interpolated_wind_conditions(speed, dirn)
+        plans.append(own._wtk_plan)
+        for g, w in zip(got, _winds(own, speed, dirn)):
+            assert g.dtype == np.float64 and g.shape == own.gridsize
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-12)
+    assert plans[0] is plans[1] is plans[2]
+    recs = [r for r in own.timer.records if r['phase'] == 'wtk_interp']
+    assert [r['plan_builds'] for r in recs] == [1, 0, 0]
+    assert [r['plan_hits'] for r in recs] == [0, 1, 1]
+    assert [r['griddata_calls'] for r in recs] == [0, 0, 0]
+    names = [r['phase'] for r in own.timer.records]
+    assert names.count('wtk_interp.plan') == 1
+    assert names.count('wtk_interp.apply') == 3
+
+
+@pytest.mark.parametrize('change', ['sites', 'method', 'grid'])
+def test_wtk_plan_rebuilt_on_a_change(snap, monkeypatch, change):
+    """A plan serves its sites, method and grid alone: a change of any
+    rebuilds it, and the winds are ``griddata``'s for the new ones."""
+    own = snap[2]
+    monkeypatch.setattr(own, 'timer', PhaseTimer())
+    vals = np.random.default_rng(12).uniform(0., 10., len(
+        own.wtk.get_locations()))
+
+    def interp():
+        with own.timer.phase('wtk_interp'):
+            return own._interpolate_wtk_vardata(vals)
+
+    before = interp()
+    plan = own._wtk_plan
+    with monkeypatch.context() as mp:
+        if change == 'sites':
+            xs, ys = own.get_wtk_locs()
+            moved = (xs + np.where(np.arange(len(xs)) == 40, 300., 0.), ys)
+            mp.setattr(own, 'get_wtk_locs', lambda: moved)
+        elif change == 'method':
+            mp.setattr(own, 'wtk_interp_type', 'nearest')
+        else:
+            xgrid, ygrid = own.get_terrain_grid()
+            mp.setattr(own, 'get_terrain_grid',
+                       lambda: (xgrid + 150., ygrid))
+        got = interp()
+        assert own._wtk_plan is not plan
+        np.testing.assert_allclose(
+            got, _griddata(own, vals, own.wtk_interp_type)[0], rtol=0,
+            atol=1e-12)
+        assert np.abs(got - before).max() > 1e-3
+    np.testing.assert_array_equal(interp(), before)
+    recs = [r for r in own.timer.records if r['phase'] == 'wtk_interp']
+    assert [r['plan_builds'] for r in recs][1:] == [1, 1]
+    assert [r['plan_hits'] for r in recs][1:] == [0, 0]
 
 
 def test_snapshot_orograph(snap):

@@ -17,9 +17,10 @@
   re-solve is one batch. A solve that converges the first time is
   bitwise the plain refined solve, with no re-solve; past the fallback
   cap the 5e-3 net is unchanged.
-- The new spans and counters in ``timer.records``: ``wtk_interp.sites``,
-  ``wtk_interp.griddata`` with ``griddata_calls``, ``resolves`` and
-  ``fallbacks``.
+- The spans and counters in ``timer.records``: ``wtk_interp.sites``,
+  ``wtk_interp.plan`` and ``wtk_interp.apply`` with ``plan_builds``,
+  ``plan_hits`` and ``griddata_calls`` (no host ``griddata`` for
+  ``linear``), ``resolves`` and ``fallbacks``.
 """
 
 import os
@@ -136,15 +137,21 @@ def test_seasonal_spans_and_counters(seasonal):
     by = {r['span']: r for r in recs}
     interps = [r for r in recs if r['phase'] == 'wtk_interp']
     assert len(interps) == 3
-    # two wind components a case, each a linear and a nearest griddata
-    assert [r['griddata_calls'] for r in interps] == [4, 4, 4]
+    # one plan for the run, built at the first case; no host griddata
+    assert [r['griddata_calls'] for r in interps] == [0, 0, 0]
+    assert [r['plan_builds'] for r in interps] == [1, 0, 0]
+    assert [r['plan_hits'] for r in interps] == [0, 1, 1]
     sites = [r for r in recs if r['phase'] == 'wtk_interp.sites']
-    grids = [r for r in recs if r['phase'] == 'wtk_interp.griddata']
-    assert len(sites) == 6 and len(grids) == 12
-    assert {by[r['parent']]['phase'] for r in sites + grids} == \
+    plans = [r for r in recs if r['phase'] == 'wtk_interp.plan']
+    applies = [r for r in recs if r['phase'] == 'wtk_interp.apply']
+    assert len(sites) == 3 and len(applies) == 3
+    assert [r['parent'] for r in plans] == [interps[0]['span']]
+    assert plans[0]['method'] == 'linear'
+    assert sorted(r['parent'] for r in applies) == \
+        sorted(r['span'] for r in interps)
+    assert {by[r['parent']]['phase'] for r in sites + plans + applies} == \
         {'wtk_interp'}
-    assert sorted(r['method'] for r in grids) == ['linear'] * 6 + \
-        ['nearest'] * 6
+    assert not [r for r in recs if r['phase'] == 'wtk_interp.griddata']
     pots = [r for r in recs if r['phase'] == 'potential']
     assert len(pots) == 3
     for r in pots:
